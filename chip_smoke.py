@@ -4,28 +4,45 @@
     python3 chip_smoke.py
 
 1. Prints the card (nvidia-smi name and power limit), nvcc and torch
-   versions, and builds kernel K1 (porotpu_torch/csrc/dia_mv.cu) from the
-   checkout, printing the build time.
-2. Main path: swelling-3d N=13 with the bench.py overrides (120,842 dofs,
-   pad multiple 128, f32, loads-only), one time step through
+   versions, and builds every kernel (porotpu_torch/csrc/*.cu, one nvcc
+   per source, all together) from the checkout, printing the build time
+   and ptxas's register report.
+2. Main path, K1: swelling-3d N=13 with the bench.py overrides (120,842
+   dofs, pad multiple 128, f32, loads-only), one time step through
    ``problem.solve()``: FGMRES + the 2-way block preconditioner with AMG.
-   The K1 dispatch counts are reset just before and read just after;
-   the run fails unless K1 launched and no banded product took the plain
-   PyTorch version.  Then three timed solves on distinct right-hand sides
-   (CUDA events, median) and bench.py's true-residual field-wise guard.
-3. K1 against its plain PyTorch version on the card, on the offset sets of
-   the built N=13 operators (the 233-band level-0 A, the 681-band level-1
-   A, an embedded coupling block and a restriction through dataT on
-   negated offsets), in f32 (max error <= 1e-5 of max|y|) and f64
-   (<= 1e-12), with both times.
-4. A small input against a reference: swelling-3d N=3 in f64 on the card
-   and on the CPU (plain path) must take the same iterations and agree.
+   The dispatch counts are reset just before and read just after; the
+   run fails unless K1 launched, K2 did not (f32 transposes run K1 on
+   dataT) and no banded product took a plain PyTorch version.  Then three
+   timed solves on distinct right-hand sides (CUDA events, median) and
+   bench.py's true-residual field-wise guard.
+3. K2's path: the same configuration in f64, where no operator stores
+   dataT and every transpose (each restriction P^T r, each Transposed
+   coupling block) runs K2.  One step with the counts reset around it
+   (K2 and K1 launched, no plain product), three timed solves and the
+   guard.
+4. K1 against its plain version on the offset sets of the built N=13
+   operators (the 233-band level-0 A, the 681-band level-1 A, an embedded
+   coupling block and a restriction through dataT on negated offsets), in
+   f32 (max error <= 1e-5 of max|y|) and f64 (<= 1e-12); beside each
+   time, the bound and cuSPARSE on the same matrix.
+5. K2 against its plain version on the transposed products of the built
+   N=13 f32 and f64 operators (each banded prolongator of the solid AMG
+   and the widest Transposed coupling block), same tolerances; beside each time, K1 on
+   a dataT built on the card from the same data, the bound and cuSPARSE.
+6. A small input against a reference: swelling-3d N=3 in f64 on the card
+   (K2 included) and on the CPU (plain versions) must take the same
+   iterations and agree to 1e-10.
+7. K3's path, its entry point porotpu_torch/tools/dia_microbench.py (the
+   counts reset around it): K3 against the numpy reference, its plain
+   version and K1 to 1e-5, and its times beside K1's and cuSPARSE's.
 
 Any failed check raises and the script exits non-zero.  It also exits
-non-zero without a CUDA device.  The last two stdout lines are the JSON
-kernel record and {"ok": true, "device": {...}}.
+non-zero without a CUDA device, and fails if jax or any module of porotpu
+was imported.  The last two stdout lines are the JSON kernel record and
+{"ok": true, "device": {...}}.
 """
 
+import gc
 import json
 import statistics
 import subprocess
@@ -37,34 +54,29 @@ def check(cond, msg):
         raise RuntimeError("chip_smoke check failed: " + msg)
 
 
-def cuda_ms(fn, reps, torch):
-    """Mean milliseconds per call of fn over ``reps`` calls, CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def check_imports():
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "porotpu"))
+    check(not bad, f"modules of jax or porotpu were imported: {bad[:5]}")
+
+
+def _banded(P):
+    """The DIA a prolongator's products run on (a Transposed one's inner)."""
+    return P.inner if type(P).__name__ == "Transposed" else P
 
 
 def k1_sets(problem):
-    """The four offset sets of the built N=13 operators K1 is checked on:
-    name -> (shape of data, offsets, length of the input)."""
-    amg_s = problem.pc.solve_s.mods["amg"]
-    sets = {}
-    l0, l1 = amg_s.levels[0], amg_s.levels[1]
-    sets["L0_A"] = (tuple(l0.A.data.shape), l0.A.offsets, l0.A.ne)
-    sets["L1_A"] = (tuple(l1.A.data.shape), l1.A.offsets, l1.A.ne)
-    P = l0.P.inner if type(l0.P).__name__ == "Transposed" else l0.P
-    check(P.dataT is not None, "level-0 prolongator stores no dataT")
-    sets["P_restrict_dataT"] = (
-        tuple(P.dataT.shape), tuple(-o for o in P.offsets), P.nrows,
-    )
-    # a rectangular coupling block, embedded (col_emb) where there is one
+    """The forward products of a built N=13 problem K1 is checked on:
+    name -> (shape of data, offsets, length of the input).  The level-0
+    and level-1 A, the level-0 restriction through dataT (f32) and the
+    widest rectangular coupling block of the outer operator."""
+    l0, l1 = problem.pc.solve_s.mods["amg"].levels[:2]
+    sets = {
+        "L0_A": (tuple(l0.A.data.shape), l0.A.offsets, l0.A.ne),
+        "L1_A": (tuple(l1.A.data.shape), l1.A.offsets, l1.A.ne),
+    }
+    P = _banded(l0.P)
+    check(P.dataT is not None, "f32 level-0 prolongator stores no dataT")
+    sets["P_restrict_dataT"] = (tuple(P.dataT.shape), tuple(-o for o in P.offsets), P.nrows)
     rect = [
         D for D in problem.A_dev.modules()
         if type(D).__name__ == "DIA" and (D.col_emb is not None or D.ne != D.nrows)
@@ -75,46 +87,46 @@ def k1_sets(problem):
     return sets
 
 
-def main():
-    import numpy as np
-    import torch
+def k2_sets(problem):
+    """The transposed products of a built N=13 problem K2 is checked on:
+    name -> (shape of data, offsets, length of the output).  Each banded
+    prolongator of the solid AMG (the coarse levels' are dense) and the
+    widest Transposed block (ne != nrows first, where there is one)."""
+    sets = {}
+    for k, lv in enumerate(problem.pc.solve_s.mods["amg"].levels):
+        P = _banded(lv.P)
+        if type(P).__name__ == "DIA":
+            sets[f"L{k}_P"] = (tuple(P.data.shape), P.offsets, P.ne)
+        else:
+            print(f"solid AMG level {k}: P is {type(P).__name__}, not banded")
+    check("L0_P" in sets, "the level-0 prolongator is not banded")
+    mods = list(problem.A_dev.modules()) + list(problem.pc.modules())
+    tr = [m.inner for m in mods
+          if type(m).__name__ == "Transposed" and type(m.inner).__name__ == "DIA"]
+    check(tr, "no Transposed banded block in the operator or the PC")
+    D = max(tr, key=lambda d: (d.ne != d.nrows, len(d.offsets)))
+    sets["transposed_block"] = (tuple(D.data.shape), D.offsets, D.ne)
+    return sets
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
-              file=sys.stderr)
-        return 2
 
-    from porotpu_torch.models.benchmarks import BENCH_OVERRIDES, swelling_3d
-    from porotpu_torch.ops import dia_kernel
-    from porotpu_torch.solvers.convergence import FieldwiseTest
+def transpose_layout(data, offsets, ne, torch):
+    """dataT (nd, ne) with dataT[d, i + o_d] = data[d, i] for the rows that
+    land inside [0, ne): the transposed layout K1 reads, built on the card."""
+    nd, nrows = data.shape
+    dst = torch.arange(nrows, device=data.device)[None, :] + torch.as_tensor(
+        offsets, dtype=torch.int64, device=data.device)[:, None]
+    ok = (dst >= 0) & (dst < ne)
+    d_idx = torch.arange(nd, device=data.device)[:, None].expand_as(dst)
+    dataT = torch.zeros((nd, ne), dtype=data.dtype, device=data.device)
+    dataT[d_idx[ok], dst[ok]] = data[ok]
+    return dataT
 
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    # full-f32 products (no TF32 anywhere)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
-    # -- 1. card, toolchain, K1 build ------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    nvcc = subprocess.run(
-        [dia_kernel._nvcc(), "--version"], capture_output=True, text=True, check=True
-    ).stdout.strip().splitlines()
-    print("nvcc:", nvcc[-2] if len(nvcc) > 1 else nvcc[-1])
-    print(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
-          f"device {torch.cuda.get_device_name(0)}")
-    build_s = dia_kernel.build()
-    print(f"K1 build: {build_s:.2f} s ({dia_kernel.LIBRARY})", flush=True)
-
-    # -- 2. main path: swelling-3d N=13, one step --------------------------
-    problem = swelling_3d(13, overrides=dict(BENCH_OVERRIDES), device=dev)
-    dofs, padded = problem.W.num_dofs, problem.padded_sizes
-    print(f"dofs={dofs} padded sizes={padded}")
-    check(dofs == 120842, f"dofs {dofs} != 120842")
-    check(padded == (59136, 59136, 2816), f"padded sizes {padded}")
+def path_run(problem, dev, torch, dia_kernel, FieldwiseTest):
+    """One step through ``problem.solve()`` (host setup included) with the
+    dispatch counts reset just before and read just after, then three timed
+    solves on distinct right-hand sides and the true-residual guard.
+    Returns the dispatch counts of the step."""
     torch.cuda.reset_peak_memory_stats(dev)
     dia_kernel.reset_counts()
     iterations = problem.solve()
@@ -124,13 +136,9 @@ def main():
     print(f"host setup: {problem.t_setup:.2f} s, first solve: {problem.t_solve_total:.4f} s")
     print(f"iterations={iterations} converged={res.converged} residual={res.res:.4e}")
     print("residual history:", " ".join(f"{h:.4e}" for h in hist))
-    print(f"dispatch counts in the solve: kernel launches={counts['kernel']} "
-          f"plain sweeps={counts['plain']}", flush=True)
-    check(res.converged, "main-path solve did not converge")
-    check(counts["kernel"] > 0, "K1 was never launched on the main path")
-    check(counts["plain"] == 0, f"{counts['plain']} banded products took the plain version")
-    if iterations != [9]:
-        print(f"NOTE: {iterations[0]} iterations, the porotpu oracle (BENCH_r05) took 9")
+    print("dispatch counts in the solve: " + ", ".join(f"{k}={v}" for k, v in counts.items()),
+          flush=True)
+    check(res.converged, "the solve did not converge")
 
     b = problem.get_rhs(problem.t)
     x0 = torch.zeros_like(b)
@@ -150,68 +158,218 @@ def main():
     print("timed solves (ms): " + ", ".join(f"{t:.3f}" for t in solve_ms)
           + f"; median {solve_s:.5f} s, {r_i.iters} iterations")
     with torch.inference_mode():
-        fw = FieldwiseTest.from_sizes(padded, bs[-1])
+        fw = FieldwiseTest.from_sizes(problem.padded_sizes, bs[-1])
         ea, er = (float(v) for v in fw.errors(bs[-1] - problem.A_dev.matvec(r_i.x)))
     print(f"true residual fieldwise: abs={ea:.3e} rel={er:.3e}")
     check(r_i.converged and (ea < 1e-7 or er < 1e-5), "true-residual guard failed")
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"peak device memory allocated: {peak / 2**20:.1f} MiB", flush=True)
+    if iterations != [9]:
+        print(f"NOTE: {iterations[0]} iterations, the porotpu oracle (BENCH_r05) took 9")
+    return counts
 
-    # -- 3. K1 against its plain version on the N=13 offset sets -----------
+
+def main():
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA card",
+              file=sys.stderr)
+        return 2
+
+    from porotpu_torch.models.benchmarks import BENCH_OVERRIDES, swelling_3d
+    from porotpu_torch.ops import dia_kernel
+    from porotpu_torch.solvers.convergence import FieldwiseTest
+    from porotpu_torch.tools import dia_microbench as mb
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    # full-f32 products (no TF32 anywhere)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # -- 1. card, toolchain, kernel build --------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    nvcc = subprocess.run(
+        [dia_kernel._nvcc(), "--version"], capture_output=True, text=True, check=True
+    ).stdout.strip().splitlines()
+    print("nvcc:", nvcc[-2] if len(nvcc) > 1 else nvcc[-1])
+    print(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
+          f"device {torch.cuda.get_device_name(0)}")
+    build_s, ptxas = dia_kernel.build()
+    print(f"kernel build: {build_s:.2f} s ({dia_kernel.LIBRARY}, "
+          f"{len(dia_kernel.SOURCES)} sources)")
+    for line in ptxas.splitlines():
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            print("  ptxas:", line.split("ptxas info")[-1].strip(" :"))
+    sys.stdout.flush()
+
+    # -- 2. main path, K1: swelling-3d N=13 f32, one step ------------------
+    f32 = swelling_3d(13, overrides=dict(BENCH_OVERRIDES), device=dev)
+    dofs, padded = f32.W.num_dofs, f32.padded_sizes
+    print(f"dofs={dofs} padded sizes={padded}")
+    check(dofs == 120842, f"dofs {dofs} != 120842")
+    check(padded == (59136, 59136, 2816), f"padded sizes {padded}")
+    counts32 = path_run(f32, dev, torch, dia_kernel, FieldwiseTest)
+    check(counts32["dia_mv"] > 0, "K1 was never launched on the main path")
+    check(counts32["dia_rmv"] == 0, "K2 ran on the f32 path, whose transposes read dataT")
+    check(counts32["plain"] == 0, f"{counts32['plain']} banded products took a plain version")
+    sets1 = k1_sets(f32)
+    sets2 = {("f32", k): v for k, v in k2_sets(f32).items()}
+    del f32  # the problem's solve closure holds a cycle: collect it
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"device memory allocated before the f64 path: "
+          f"{torch.cuda.memory_allocated(dev) / 2**20:.1f} MiB")
+
+    # -- 3. K2's path: swelling-3d N=13 f64, one step -----------------------
+    print("-- f64 (K2 path)", flush=True)
+    f64 = swelling_3d(13, overrides=dict(BENCH_OVERRIDES, dtype="float64"), device=dev)
+    counts64 = path_run(f64, dev, torch, dia_kernel, FieldwiseTest)
+    check(counts64["dia_rmv"] > 0, "K2 was never launched on the f64 path")
+    check(counts64["dia_mv"] > 0, "K1 was never launched on the f64 path")
+    check(counts64["plain"] == 0, f"{counts64['plain']} banded products took a plain version")
+    check(not any(type(m).__name__ == "DIA" and m.dataT is not None
+                  for m in list(f64.A_dev.modules()) + list(f64.pc.modules())),
+          "an f64 operator stores dataT")
+    sets2.update({("f64", k): v for k, v in k2_sets(f64).items()})
+    del f64
+    gc.collect()
+    torch.cuda.empty_cache()
+
     rng = np.random.default_rng(0)
-    times = {}  # (set, dtype) -> (K1 ms, plain ms)
-    max_abs_err = 0.0
-    for name, (shape, offs, n_in) in k1_sets(problem).items():
-        nrows = shape[1]
+    dtypes = {"f32": (torch.float32, 1e-5), "f64": (torch.float64, 1e-12)}
+    record = {}  # (kernel, set, dtype) -> dict of numbers
+    max_abs = {"dia_mv": 0.0, "dia_rmv": 0.0}
+
+    def compare(kernel, key, y, ref, tol):
+        abs_err = (y - ref).abs().max().item()
+        rel = abs_err / ref.abs().max().item()
+        check(rel <= tol, f"{kernel} {key} disagrees with its plain version ({rel:.2e})")
+        max_abs[kernel] = max(max_abs[kernel], abs_err)
+        return rel
+
+    # -- 4. K1 against its plain version on the N=13 offset sets -------------
+    for name, (shape, offs, n_in) in sets1.items():
+        nd, nrows = shape
         data64 = rng.normal(size=shape)
         x64 = rng.normal(size=n_in)
         offs_dev = torch.tensor(offs, dtype=torch.int32, device=dev)
-        for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        entries = mb.band_entries(offs, nrows, n_in)
+        for tag, (dtype, tol) in dtypes.items():
             data = torch.as_tensor(data64, dtype=dtype, device=dev)
             x = torch.as_tensor(x64, dtype=dtype, device=dev)
             y = dia_kernel.dia_mv(data, offs_dev, x)
             torch.cuda.synchronize()
-            ref = dia_kernel.dia_mv_ref(data, offs, x, nrows)
-            abs_err = (y - ref).abs().max().item()
-            rel = abs_err / ref.abs().max().item()
-            ms = cuda_ms(lambda: dia_kernel.dia_mv(data, offs_dev, x), 50, torch)
-            plain_ms = cuda_ms(lambda: dia_kernel.dia_mv_ref(data, offs, x, nrows), 10, torch)
-            times[name, dtype] = ms, plain_ms
-            # bytes the product must move: data, input, output
-            gbps = (len(offs) * nrows + n_in + nrows) * data.element_size() / ms / 1e6
-            print(f"K1 {name} nd={len(offs)} nrows={nrows} n_in={n_in} {dtype}: "
-                  f"max err/max|y| = {rel:.2e} (tol {tol:g}), {ms:.4f} ms "
-                  f"({gbps:.0f} GB/s) vs plain {plain_ms:.4f} ms", flush=True)
-            check(rel <= tol, f"K1 {name} {dtype} disagrees with its plain version")
-            if dtype == torch.float32:
-                max_abs_err = max(max_abs_err, abs_err)
+            rel = compare("dia_mv", (name, tag), y, dia_kernel.dia_mv_ref(data, offs, x, nrows), tol)
+            A = mb.banded_csr(data, offs, n_in)
+            rel_lib = ((A @ x - y).abs().max() / y.abs().max()).item()
+            ms = mb.cuda_ms(lambda: dia_kernel.dia_mv(data, offs_dev, x), 50)
+            plain_ms = mb.cuda_ms(lambda: dia_kernel.dia_mv_ref(data, offs, x, nrows), 10)
+            lib_ms = mb.cuda_ms(lambda: A @ x, 50)
+            nbytes = (entries + n_in + nrows) * data.element_size()
+            b_ms, b_by = mb.bound(nbytes, 2 * entries, dtype)
+            record["dia_mv", name, tag] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                               bound_ms=b_ms, bound_by=b_by)
+            print(f"K1 {name} nd={nd} nrows={nrows} n_in={n_in} {tag}: err {rel:.2e} "
+                  f"(tol {tol:g}), {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, "
+                  f"{100 * b_ms / ms:.1f}% of the {b_by} bound {b_ms:.4f} ms), "
+                  f"plain {plain_ms:.4f} ms, cuSPARSE {lib_ms:.4f} ms (err {rel_lib:.1e})",
+                  flush=True)
+            del A
 
-    # -- 4. small input: the card's path against the CPU plain path --------
+    # -- 5. K2 against its plain version, K1 on dataT and cuSPARSE beside -----
+    for (tag, name), (shape, offs, ne) in sets2.items():
+        dtype, tol = dtypes[tag]
+        nd, nrows = shape
+        data = torch.as_tensor(rng.normal(size=shape), dtype=dtype, device=dev)
+        x = torch.as_tensor(rng.normal(size=nrows), dtype=dtype, device=dev)
+        offs_dev = torch.tensor(offs, dtype=torch.int32, device=dev)
+        y = dia_kernel.dia_rmv(data, offs_dev, x, ne)
+        torch.cuda.synchronize()
+        rel = compare("dia_rmv", (name, tag), y, dia_kernel.dia_rmv_ref(data, offs, x, ne), tol)
+        dataT = transpose_layout(data, offs, ne, torch)
+        neg_dev = -offs_dev
+        y1 = dia_kernel.dia_mv(dataT, neg_dev, x)
+        rel_k1 = ((y1 - y).abs().max() / y.abs().max()).item()
+        check(rel_k1 <= tol, f"K1 on dataT disagrees with K2 on {name} {tag} ({rel_k1:.2e})")
+        At = mb.banded_csr(data, offs, ne, transpose=True)
+        rel_lib = ((At @ x - y).abs().max() / y.abs().max()).item()
+        # K2 and K1 on dataT in turns (K2, K1, K1, K2), each its faster turn
+        t = [mb.cuda_ms(f, 50) for f in (
+            lambda: dia_kernel.dia_rmv(data, offs_dev, x, ne),
+            lambda: dia_kernel.dia_mv(dataT, neg_dev, x),
+        )]
+        t += [mb.cuda_ms(f, 50) for f in (
+            lambda: dia_kernel.dia_mv(dataT, neg_dev, x),
+            lambda: dia_kernel.dia_rmv(data, offs_dev, x, ne),
+        )]
+        ms, k1_ms = min(t[0], t[3]), min(t[1], t[2])
+        plain_ms = mb.cuda_ms(lambda: dia_kernel.dia_rmv_ref(data, offs, x, ne), 10)
+        lib_ms = mb.cuda_ms(lambda: At @ x, 50)
+        entries = mb.band_entries(offs, nrows, ne)
+        nbytes = (entries + nrows + ne) * data.element_size()
+        b_ms, b_by = mb.bound(nbytes, 2 * entries, dtype)
+        record["dia_rmv", name, tag] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                            bound_ms=b_ms, bound_by=b_by, k1_dataT_ms=k1_ms)
+        print(f"K2 {name} nd={nd} nrows={nrows} ne={ne} {tag}: err {rel:.2e} (tol {tol:g}), "
+              f"{ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, {100 * b_ms / ms:.1f}% of the "
+              f"{b_by} bound {b_ms:.4f} ms); K1 on dataT {k1_ms:.4f} ms "
+              f"(K2/K1 {ms / k1_ms:.2f}), plain {plain_ms:.4f} ms, "
+              f"cuSPARSE {lib_ms:.4f} ms (err {rel_lib:.1e})", flush=True)
+        del dataT, At
+    torch.cuda.empty_cache()
+
+    # -- 6. small input: the card's path against the CPU plain path --------
     small = {}
     for where in ("cuda", "cpu"):
         p = swelling_3d(3, overrides=dict(BENCH_OVERRIDES, dtype="float64"),
                         device=dev if where == "cuda" else "cpu")
+        dia_kernel.reset_counts()
         its = p.solve()
-        small[where] = (its[0], p.sol.cpu().numpy())
+        small[where] = (its[0], p.sol.cpu().numpy(), dict(dia_kernel.COUNTS))
     err = np.abs(small["cuda"][1] - small["cpu"][1]).max() / np.abs(small["cpu"][1]).max()
     print(f"N=3 f64 card vs CPU: iterations {small['cuda'][0]} vs {small['cpu'][0]}, "
-          f"max rel diff of x {err:.2e}")
+          f"max rel diff of x {err:.2e}; card counts {small['cuda'][2]}")
+    check(small["cuda"][2]["dia_rmv"] > 0, "K2 did not run in the N=3 f64 card solve")
+    check(small["cuda"][2]["plain"] == 0, "the N=3 card solve took a plain version")
     check(small["cuda"][0] == small["cpu"][0], "N=3 iteration counts differ")
     check(err <= 1e-10, "N=3 solutions differ")
     check(np.isfinite(small["cuda"][1]).all(), "non-finite N=3 solution")
-    check("jax" not in sys.modules, "jax was imported")
 
-    ms, plain_ms = times["L0_A", torch.float32]
-    print(json.dumps({"kernels": [{
-        "name": "dia_mv",
-        "route": "cuda",
-        "source": "porotpu_torch/csrc/dia_mv.cu",
-        "replaces": "porotpu/ops/pallas_dia.py:130",
-        "launches": counts["kernel"],
-        "max_abs_err": max_abs_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+    # -- 7. K3's path: the microbench -----------------------------------------
+    dia_kernel.reset_counts()
+    mbrec = mb.run()
+    launches_k3 = dia_kernel.COUNTS["dia_mv_padded"]
+    mb.report(mbrec)
+    check(launches_k3 > 0, "K3 was never launched by the microbench")
+    check_imports()
+
+    k1, k2, k3 = record["dia_mv", "L0_A", "f32"], record["dia_rmv", "L0_P", "f64"], mbrec["k3"]
+    print(smi)
+    print(json.dumps({"kernels": [
+        {"name": "dia_mv", "route": "cuda", "source": "porotpu_torch/csrc/dia_mv.cu",
+         "replaces": "porotpu/ops/pallas_dia.py:130", "launches": counts32["dia_mv"],
+         "max_abs_err": max_abs["dia_mv"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+         "library_ms": k1["library_ms"]},
+        {"name": "dia_rmv", "route": "cuda", "source": "porotpu_torch/csrc/dia_rmv.cu",
+         "replaces": "porotpu/ops/pallas_dia.py:246", "launches": counts64["dia_rmv"],
+         "max_abs_err": max_abs["dia_rmv"], "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+         "library_ms": k2["library_ms"]},
+        {"name": "dia_mv_padded", "route": "cuda",
+         "source": "porotpu_torch/csrc/dia_mv_padded.cu",
+         "replaces": "tools/pallas_dia.py:98", "launches": launches_k3,
+         "max_abs_err": mbrec["max_abs_err"], "ms": k3["ms"], "plain_ms": mbrec["plain_ms"],
+         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+         "library_ms": mbrec["cusparse"]["ms"]},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

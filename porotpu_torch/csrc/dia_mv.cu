@@ -4,9 +4,10 @@
 //   with xe read as zero outside [0, ne).
 //
 // Replaces the Pallas TPU kernel porotpu/ops/pallas_dia.py:_kernel_call
-// (wrapper `mv`).  One kernel carries every banded product of the solve:
-// forward products on (data, offsets) and transposes on the transposed
-// layout (dataT, -offsets), see porotpu_torch/ops/dia.py.
+// (wrapper `mv`).  It carries every forward banded product of the solve
+// on (data, offsets), and the f32 transposes on the transposed layout
+// (dataT, -offsets); f64 transposes run K2 (dia_rmv.cu), see
+// porotpu_torch/ops/dia.py.
 //
 // Bound: device memory.  A product streams nd * nrows values of `data`
 // once and does one multiply-add per value; x (at most a few hundred KB)

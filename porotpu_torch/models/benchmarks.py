@@ -7,10 +7,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from porotpu.fem.bcs import DirichletBC
-from porotpu.fem.mesh import generate_boundary_measure, generate_cube
-from porotpu.models.loads import NormalLoad, ZeroLoad
-
+from ..fem.bcs import DirichletBC
+from ..fem.mesh import generate_boundary_measure, generate_cube
+from .loads import NormalLoad, ZeroLoad
 from .poromechanics import Poromechanics
 
 
@@ -50,7 +49,7 @@ def _base_parameters():
 
 
 def swelling_3d(
-    Nelements=10, refinements=0, parser=None, overrides=None, dtype=None, device="cpu"
+    Nelements=10, refinements=0, parser=None, overrides=None, dtype=None, device="cuda"
 ):
     """3D swelling (reference swelling-3d.py): ks=1e8, maxiter 100, roller
     BCs per face (porotpu/models/benchmarks.py:187-244)."""

@@ -1,8 +1,8 @@
 """The 3-field poromechanics problem on PyTorch (porotpu/models/poromechanics.py).
 
-Assembly is porotpu's jax-free ``PoromechanicsAssembler``; the host
-staging below (BC surgery, padded layout, near-nullspaces, coordinates)
-copies porotpu's.  The solver state — the block operator ``A_dev`` and
+Assembly is the port's copy of porotpu's ``PoromechanicsAssembler``
+(``models/forms.py``); the host staging below (BC surgery, padded
+layout, near-nullspaces, coordinates) copies porotpu's.  The solver state — the block operator ``A_dev`` and
 the block preconditioner ``pc`` — is a tree of ``nn.Module``s built on
 the host and moved to ``device`` in one ``.to``.  Each time step is one
 right-preconditioned FGMRES solve.
@@ -23,11 +23,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from porotpu.fem.bcs import bc_dofs_values, zero_rows
-from porotpu.fem.dofmap import FunctionSpace, MixedSpace, vertex_embedding
-from porotpu.models.abstract import AbstractPhysics
-from porotpu.models.forms import FIELDS, PC_TYPES, PoromechanicsAssembler, Primitives
-
+from ..fem.bcs import bc_dofs_values, zero_rows
+from ..fem.dofmap import FunctionSpace, MixedSpace, vertex_embedding
 from ..ops.dia import device_matrix
 from ..ops.sparse import FieldMatrix
 from ..precond.amg import rigid_body_modes
@@ -36,49 +33,13 @@ from ..precond.inner import InnerConfig, build_inner_solver
 from ..precond.schur import build_schur_fieldsplit
 from ..solvers.convergence import FieldwiseTest
 from ..solvers.gmres import fgmres
+from .abstract import AbstractPhysics, log
+from .forms import FIELDS, PC_TYPES, PoromechanicsAssembler
 
 DTYPES = {
     "float64": torch.float64, "f64": torch.float64, "double": torch.float64,
     "float32": torch.float32, "f32": torch.float32, "single": torch.float32,
 }
-
-
-def log(*args):
-    """Print and flush.  porotpu's ``parprint`` is not used anywhere on the
-    port's path: its primary-process test imports jax
-    (porotpu/utils/printing.py:13-19), which would start a second runtime
-    on the card."""
-    print(*args, flush=True)
-
-
-class _Assembler(PoromechanicsAssembler):
-    """porotpu's assembler with an ``assemble`` that reports through ``log``."""
-
-    def assemble(self):
-        """Copy of porotpu/models/forms.py:210-243."""
-        t0 = _time.perf_counter()
-        pr = Primitives(self.W, self.mu_s, self.lmbda, self.mu_f, self.phi0)
-        self.pr = pr
-        phis, phi0 = self.phis, self.phi0
-        idt, ikf, ks = self.idt, self.ikf, self.ks
-        rhos, rhof = self.rhos, self.rhof
-        A = {}
-        A["s", "s"] = (
-            rhos * idt**2 * phis * pr.Mv_s + pr.Hooke + phi0**2 * ikf * idt * pr.Mv_s
-        ).tocsr()
-        A["s", "f"] = (-(phi0**2) * ikf * pr.Msf).tocsr()
-        A["s", "p"] = (-phis * pr.D_s.T).tocsr()
-        A["f", "s"] = (-(phi0**2) * ikf * idt * pr.Mfs).tocsr()
-        A["f", "f"] = (
-            rhof * idt * phi0 * pr.Mv_f + pr.EpsF + phi0**2 * ikf * pr.Mv_f
-        ).tocsr()
-        A["f", "p"] = (-phi0 * pr.D_f.T).tocsr()
-        A["p", "s"] = (phis * idt * pr.D_s).tocsr()
-        A["p", "f"] = (phi0 * pr.D_f).tocsr()
-        A["p", "p"] = (phis**2 * idt / ks * pr.Mp).tocsr()
-        self.A_blocks = A
-        self.P_blocks, self.P_diff_pp = self.build_preconditioner_blocks(A)
-        log("---- [Assembler] Assembly A, P time = {}s".format(_time.perf_counter() - t0))
 
 
 def _resolve_dtype(name, default):
@@ -94,7 +55,7 @@ def _resolve_dtype(name, default):
 class Poromechanics(AbstractPhysics):
     def __init__(
         self, parameters, mesh, markers=None, parser=None, dtype=torch.float64,
-        device="cpu",
+        device="cuda",
     ):
         super().__init__(parameters, mesh, parser)
         p = self.parameters
@@ -102,6 +63,11 @@ class Poromechanics(AbstractPhysics):
         dtype = _resolve_dtype(p.get("dtype"), dtype)
         self.dtype = dtype
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "Poromechanics: device {!r} asked for, but torch sees no CUDA card; "
+                "pass device='cpu' to run the plain versions on the host".format(str(device))
+            )
         self.markers = markers
 
         Vs = FunctionSpace(mesh, p.get("fe degree solid", 2), vector=True)
@@ -119,14 +85,12 @@ class Poromechanics(AbstractPhysics):
         self.three_way = "3-way" in self.pc_type and self.pc_type != "diagonal 3-way-II"
         self.two_way = not self.three_way
 
-        if self.output_solutions:
-            raise NotImplementedError("solution export is not ported yet (ROADMAP M7)")
         log(
             "---- Problem dofs={}, h={}, solving on {}".format(
                 self.W.num_dofs, mesh.hmin(), self.device
             )
         )
-        self.assembler = _Assembler(p, self.W, self.three_way)
+        self.assembler = PoromechanicsAssembler(p, self.W, self.three_way)
 
         ns, nf, npp = self.W.get_dimensions()
         self.ns, self.nf, self.npp = ns, nf, npp
@@ -172,24 +136,6 @@ class Poromechanics(AbstractPhysics):
         self.pc_applies = 0
 
     # ------------------------------------------------------------------
-    def solve(self):
-        """The time loop of porotpu/models/abstract.py:61-86, reporting
-        through ``log``; returns the per-step iteration counts."""
-        t_start = _time.perf_counter()
-        iterations = []
-        while self.t < self.tf - 1e-12:
-            t0 = _time.perf_counter()
-            self.t += self.dt
-            its = self.solve_time_step(self.t)
-            iterations.append(its)
-            log(
-                "-------- Solved time t={:.2f}. {} iterations in {:.2f}s".format(
-                    self.t, its, _time.perf_counter() - t0
-                )
-            )
-        log("Total simulation time = {}s\n".format(_time.perf_counter() - t_start))
-        return iterations
-
     def set_bcs(self, bcs, bcs_diff):
         """Set Dirichlet BCs (assumed constant in time)."""
         self.bcs = list(bcs)

@@ -2,12 +2,13 @@
 
     y[i] = sum_d data[d, i] * xe[i + off_d]
 
-Every banded product goes through ``dia_kernel.mv``: the CUDA kernel K1
-for a CUDA tensor, its plain PyTorch version for a CPU tensor.  The
-transpose of a banded matrix is banded with negated offsets, so operators
-whose transpose product is hot (prolongators, ``Transposed`` coupling
-blocks) store the transposed layout ``dataT`` and run the same forward
-kernel on (dataT, -offsets).
+Every banded product goes through ``dia_kernel``: a CUDA kernel for a
+CUDA tensor, its plain PyTorch version for a CPU tensor.  Forward
+products run K1 (``dia_kernel.mv``).  The transpose of a banded matrix
+is banded with negated offsets, so in f32, as in porotpu, operators whose
+transpose product is hot (prolongators, ``Transposed`` coupling blocks)
+store the transposed layout ``dataT`` and run K1 on (dataT, -offsets).
+Every other transpose runs K2 (``dia_kernel.rmv``) on A's own layout.
 
 Rectangular cross-space blocks are handled by a column embedding
 ``col_emb``: the input is scattered into the row lattice (size ``ne``)
@@ -75,8 +76,8 @@ class DIA(nn.Module):
     ) -> "DIA | None":
         """Convert CSR to DIA; None if the diagonal count exceeds ``max_diags``.
 
-        Copy of porotpu/ops/dia.py:258-286, except that ``dataT`` is stored
-        for every dtype (the CUDA kernel takes f32 and f64).
+        Copy of porotpu/ops/dia.py:258-286: ``store_transpose`` builds
+        ``dataT`` for float32 only and is skipped for other dtypes.
         """
         A = A.tocsr()
         A.sum_duplicates()
@@ -95,7 +96,7 @@ class DIA(nn.Module):
         data[didx, coo.row] = coo.data
         offs = list(int(o) for o in offsets) or [0]
         dataT = None
-        if store_transpose:
+        if store_transpose and dtype == torch.float32:
             ne = m if col_emb is None else max(n, int(col_emb.max()) + 1)
             dT = np.zeros((nd, ne), dtype=np_dtype)
             dT[didx, ecol] = coo.data
@@ -115,8 +116,8 @@ class DIA(nn.Module):
     forward = matvec
 
     def rmatvec(self, x: torch.Tensor) -> torch.Tensor:
-        """A^T x: the forward kernel on (dataT, -offsets) when the transposed
-        layout is stored; otherwise the plain transpose sweep (CPU only)."""
+        """A^T x: K1 on (dataT, -offsets) when the transposed layout is
+        stored, otherwise K2 on (data, offsets)."""
         if self.dataT is not None:
             y = dia_kernel.mv(
                 self.dataT,
@@ -125,28 +126,11 @@ class DIA(nn.Module):
                 x,
                 self.ne,
             )
-        elif x.is_cuda:
-            raise NotImplementedError(
-                "DIA.rmatvec without dataT needs the transpose kernel K2 "
-                "(porotpu/ops/pallas_dia.py:rmv), not yet ported (ROADMAP queue 2)"
-            )
         else:
-            y = self._rmv_sweep(x)
+            y = dia_kernel.rmv(self.data, self.offsets, self.offsets_dev, x, self.ne)
         if self.col_emb is not None:
             return y[self.col_emb]
         return y[: self.ncols]
-
-    def _rmv_sweep(self, x):
-        """y[k] = sum_d dpad[d, plo - o_d + k] * xpad[plo - o_d + k], k < ne
-        (porotpu/ops/dia.py:579-594)."""
-        dia_kernel.COUNTS["plain"] += 1
-        ne = self.ne
-        plo = max(max(self.offsets), 0)
-        phi = max(0, ne - min(self.offsets) - self.nrows)
-        prod = torch.nn.functional.pad(self.data * x, (plo, phi))
-        starts = plo - torch.tensor(self.offsets, dtype=torch.int64, device=x.device)
-        idx = starts[:, None] + torch.arange(ne, device=x.device)[None, :]
-        return torch.gather(prod, 1, idx).sum(0)
 
     def to_dense(self) -> np.ndarray:
         ne = self.ne

@@ -1,14 +1,23 @@
-"""Kernel K1: the banded matvec y[i] = sum_d data[d, i] * xe[i + off_d].
+"""The banded kernels, their plain PyTorch versions and their dispatch.
 
-Counterpart of porotpu/ops/pallas_dia.py:mv.  On a CUDA tensor the product
-runs the hand-written kernel in ``porotpu_torch/csrc/dia_mv.cu``; on a CPU
-tensor it runs ``dia_mv_ref``, the plain PyTorch version of the same
-function.  There is no fallback between the two: a CUDA tensor whose
-kernel fails to build or launch raises.
+- K1 ``dia_mv``: y[i] = sum_d data[d, i] * xe[i + off_d], xe read as zero
+  outside [0, ne) (porotpu/ops/pallas_dia.py:mv; ``csrc/dia_mv.cu``).
+- K2 ``dia_rmv``: the transpose from A's own layout, y[j] = sum_d
+  data[d, j - off_d] * x[j - off_d] over the rows 0 <= j - off_d < nrows
+  (porotpu/ops/pallas_dia.py:rmv; ``csrc/dia_rmv.cu``).
+- K3 ``dia_mv_padded``: K1 on an input already zero-padded by
+  lo = max(0, -min off) and hi = max(0, max off), no bounds test
+  (tools/pallas_dia.py:pallas_dia_matvec; ``csrc/dia_mv_padded.cu``).
 
-The kernel is compiled by ``nvcc`` at first use into
-``build/porotpu_torch_ext/`` at the repository root (rebuilt when the
-source is newer than the library) and bound through ctypes: the C entry
+The dispatch functions ``mv``, ``rmv`` and ``mv_padded`` launch the CUDA
+kernel for a CUDA tensor and run the plain version (``*_ref``) for a CPU
+tensor.  There is no fallback between the two: a CUDA tensor whose kernel
+fails to build or launch raises.
+
+Every ``csrc/*.cu`` is compiled by ``nvcc`` at first use, one process per
+source, all started together, and linked into one library under
+``build/porotpu_torch_ext/`` at the repository root (rebuilt when any
+source is newer than the library).  It is bound through ctypes: the C entry
 points take raw device pointers and the current stream, so neither ninja
 nor PyTorch's headers are needed.
 """
@@ -16,6 +25,7 @@ nor PyTorch's headers are needed.
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -26,23 +36,24 @@ import torch
 import torch.nn.functional as F
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "dia_mv.cu")
+SOURCES = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cu")))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "porotpu_torch_ext")
-LIBRARY = os.path.join(BUILD_DIR, "libporotpu_dia_mv.so")
+LIBRARY = os.path.join(BUILD_DIR, "libporotpu_torch_ext.so")
 NVCC_FLAGS = [
     "-O3",
     "-std=c++17",
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-shared",
     "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
 ]
 # the offsets are staged in the default 48 KB of dynamic shared memory
 MAX_DIAGONALS = 48 * 1024 // 4
 
-# Dispatch counts, read by chip_smoke.py: "kernel" counts launches of the
-# CUDA kernel (incremented only at the launch), "plain" counts products
-# taken by the plain PyTorch version through the dispatch in ``mv``.
-COUNTS = {"kernel": 0, "plain": 0}
+# Dispatch counts, read by chip_smoke.py: "dia_mv", "dia_rmv" and
+# "dia_mv_padded" count launches of each CUDA kernel (incremented only
+# where it launches), "plain" counts products taken by a plain PyTorch
+# version through the dispatch functions.
+COUNTS = {"dia_mv": 0, "dia_rmv": 0, "dia_mv_padded": 0, "plain": 0}
 
 _lib = None
 
@@ -65,35 +76,51 @@ def _nvcc() -> str:
             return c
     raise RuntimeError(
         "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin, PATH): "
-        "cannot build the banded-matvec kernel"
+        "cannot build the banded kernels"
     )
 
 
-def build() -> float:
-    """Compile the kernel library if it is missing or older than its source.
-
-    Returns the seconds spent compiling (0.0 when the library was current).
-    Raises RuntimeError with nvcc's output when the build fails.
-    """
-    if os.path.exists(LIBRARY) and os.path.getmtime(LIBRARY) >= os.path.getmtime(
-        SOURCE
-    ):
-        return 0.0
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            "nvcc failed building {} (exit {}):\n{}\n{}".format(
-                SOURCE, proc.returncode, proc.stdout, proc.stderr
+def _run_all(cmds):
+    """Run the commands together; raise with nvcc's output on a failure.
+    Returns their stderr (ptxas's register and spill report)."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate() for p in procs]
+    for c, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                "nvcc failed (exit {}): {}\n{}\n{}".format(p.returncode, " ".join(c), out, err)
             )
+    return "".join(err for _, err in outs)
+
+
+def build() -> tuple[float, str]:
+    """Compile the kernel library if it is missing or older than a source.
+
+    Returns (seconds spent, ptxas report); (0.0, "") when the library was
+    current.  Raises RuntimeError with nvcc's output when the build fails.
+    """
+    if os.path.exists(LIBRARY) and os.path.getmtime(LIBRARY) >= max(
+        os.path.getmtime(s) for s in SOURCES
+    ):
+        return 0.0, ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [
+            os.path.join(tmp, os.path.basename(s)[:-3] + ".o") for s in SOURCES
+        ]
+        report = _run_all(
+            [[nvcc, *NVCC_FLAGS, "-c", "-o", o, s] for s, o in zip(SOURCES, objs)]
         )
-    os.replace(tmp, LIBRARY)  # atomic: a concurrent loader never sees half a file
-    return time.perf_counter() - t0
+        lib = os.path.join(tmp, "lib.so")
+        _run_all([[nvcc, "-shared", "-o", lib, *objs]])
+        # atomic: a concurrent loader never sees half a file
+        os.replace(lib, LIBRARY)
+    return time.perf_counter() - t0, report
 
 
 def _load():
@@ -102,17 +129,16 @@ def _load():
         return _lib
     build()
     lib = ctypes.CDLL(LIBRARY)
+    # data, offsets (int32, device), nd, nrows, input, ne or lo, y, stream
     argtypes = [
-        ctypes.c_void_p,  # data
-        ctypes.c_void_p,  # offsets (int32, device)
-        ctypes.c_int,  # nd
-        ctypes.c_int,  # nrows
-        ctypes.c_void_p,  # xe
-        ctypes.c_int,  # ne
-        ctypes.c_void_p,  # y
-        ctypes.c_void_p,  # stream
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ]
-    for fn in (lib.porotpu_dia_mv_f32, lib.porotpu_dia_mv_f64):
+    for fn in (
+        lib.porotpu_dia_mv_f32, lib.porotpu_dia_mv_f64,
+        lib.porotpu_dia_rmv_f32, lib.porotpu_dia_rmv_f64,
+        lib.porotpu_dia_mv_padded_f32,
+    ):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     lib.porotpu_cuda_error_string.argtypes = [ctypes.c_int]
@@ -121,32 +147,57 @@ def _load():
     return lib
 
 
+def _check(name, data, offsets, x, dtypes):
+    """Validate a launch's operands; returns (nd, nrows)."""
+    if not (data.is_cuda and offsets.device == data.device and x.device == data.device):
+        raise ValueError(f"{name}: data, offsets and the input must be on one CUDA device")
+    if data.dtype not in dtypes or x.dtype != data.dtype:
+        raise TypeError(
+            f"{name}: needs data of {', '.join(map(str, dtypes))} and an input of the "
+            f"same dtype, got {data.dtype} and {x.dtype}"
+        )
+    if offsets.dtype != torch.int32:
+        raise TypeError(f"{name}: offsets must be int32, got {offsets.dtype}")
+    if data.dim() != 2 or offsets.dim() != 1 or x.dim() != 1:
+        raise ValueError(f"{name}: expects data (nd, nrows), offsets (nd,) and a 1-D input")
+    nd, nrows = data.shape
+    if offsets.shape[0] != nd:
+        raise ValueError(f"{name}: {offsets.shape[0]} offsets for {nd} diagonals")
+    if nd > MAX_DIAGONALS:
+        raise ValueError(f"{name}: {nd} diagonals exceed the {MAX_DIAGONALS} staged")
+    if not (data.is_contiguous() and offsets.is_contiguous() and x.is_contiguous()):
+        raise ValueError(f"{name}: data, offsets and the input must be contiguous")
+    if max(data.numel(), x.numel()) >= 2**31:
+        raise ValueError(f"{name}: sizes beyond int32 indexing")
+    return nd, nrows
+
+
+def _launch(name, fn, data, offsets, nd, nrows, x, n, y):
+    """One launch on the current stream; raises on the launch's CUDA error."""
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        err = fn(data.data_ptr(), offsets.data_ptr(), nd, nrows, x.data_ptr(), n,
+                 y.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(
+            "{} launch failed: CUDA error {} ({})".format(
+                name, err, _lib.porotpu_cuda_error_string(err).decode()
+            )
+        )
+    COUNTS[name] += 1
+    return y
+
+
+# -- K1 ----------------------------------------------------------------------
+
+
 def dia_mv(data: torch.Tensor, offsets: torch.Tensor, xe: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel: y (nrows,) with nrows = data.shape[1].
+    """Launch K1: y (nrows,) with nrows = data.shape[1].
 
     data: (nd, nrows) float32/float64 CUDA tensor; offsets: (nd,) int32 on
     the same device; xe: (ne,) of data's dtype, any ne >= 0.
     """
-    if not (data.is_cuda and offsets.device == data.device and xe.device == data.device):
-        raise ValueError("dia_mv: data, offsets and xe must be on one CUDA device")
-    if data.dtype not in (torch.float32, torch.float64) or xe.dtype != data.dtype:
-        raise TypeError(
-            f"dia_mv: needs float32/float64 data and xe of one dtype, got "
-            f"{data.dtype} and {xe.dtype}"
-        )
-    if offsets.dtype != torch.int32:
-        raise TypeError(f"dia_mv: offsets must be int32, got {offsets.dtype}")
-    if data.dim() != 2 or offsets.dim() != 1 or xe.dim() != 1:
-        raise ValueError("dia_mv: expects data (nd, nrows), offsets (nd,), xe (ne,)")
-    nd, nrows = data.shape
-    if offsets.shape[0] != nd:
-        raise ValueError(f"dia_mv: {offsets.shape[0]} offsets for {nd} diagonals")
-    if nd > MAX_DIAGONALS:
-        raise ValueError(f"dia_mv: {nd} diagonals exceed the {MAX_DIAGONALS} staged")
-    if not (data.is_contiguous() and offsets.is_contiguous() and xe.is_contiguous()):
-        raise ValueError("dia_mv: data, offsets and xe must be contiguous")
-    if max(data.numel(), xe.numel()) >= 2**31:
-        raise ValueError("dia_mv: sizes beyond int32 indexing")
+    nd, nrows = _check("dia_mv", data, offsets, xe, (torch.float32, torch.float64))
     y = torch.empty(nrows, dtype=data.dtype, device=data.device)
     if nrows == 0:
         return y
@@ -154,25 +205,12 @@ def dia_mv(data: torch.Tensor, offsets: torch.Tensor, xe: torch.Tensor) -> torch
         return y.zero_()
     lib = _load()
     fn = lib.porotpu_dia_mv_f32 if data.dtype == torch.float32 else lib.porotpu_dia_mv_f64
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream(data.device).cuda_stream
-        err = fn(
-            data.data_ptr(), offsets.data_ptr(), nd, nrows,
-            xe.data_ptr(), xe.shape[0], y.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            "dia_mv launch failed: CUDA error {} ({})".format(
-                err, lib.porotpu_cuda_error_string(err).decode()
-            )
-        )
-    COUNTS["kernel"] += 1
-    return y
+    return _launch("dia_mv", fn, data, offsets, nd, nrows, xe, xe.shape[0], y)
 
 
 def dia_mv_ref(data: torch.Tensor, offsets, xe: torch.Tensor, nrows: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: a gather of shifted windows of
-    the zero-padded input, summed over the diagonals.  The padding is
+    """Plain PyTorch version of K1: a gather of shifted windows of the
+    zero-padded input, summed over the diagonals.  The padding is
     porotpu's ``DIA._pads`` (porotpu/ops/dia.py:294-299).
 
     ``offsets``: sequence of ints (or an int tensor) of length nd.
@@ -189,9 +227,113 @@ def dia_mv_ref(data: torch.Tensor, offsets, xe: torch.Tensor, nrows: int) -> tor
 
 
 def mv(data, offsets, offsets_dev, xe, nrows):
-    """Banded product dispatched by device: the CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor."""
+    """Banded product dispatched by device: K1 for a CUDA tensor, its plain
+    version for a CPU tensor."""
     if xe.is_cuda:
         return dia_mv(data, offsets_dev, xe)
     COUNTS["plain"] += 1
     return dia_mv_ref(data, offsets, xe, nrows)
+
+
+# -- K2 ----------------------------------------------------------------------
+
+
+def dia_rmv(data: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor, ne: int) -> torch.Tensor:
+    """Launch K2: y (ne,) over the embedded column space.
+
+    data: (nd, nrows) float32/float64 CUDA tensor; offsets: (nd,) int32 on
+    the same device; x: (nrows,) of data's dtype; ne >= 0.
+    """
+    nd, nrows = _check("dia_rmv", data, offsets, x, (torch.float32, torch.float64))
+    if x.shape[0] != nrows:
+        raise ValueError(f"dia_rmv: input of length {x.shape[0]} for {nrows} rows")
+    if not 0 <= ne < 2**31:
+        raise ValueError(f"dia_rmv: output length {ne} outside int32")
+    y = torch.empty(ne, dtype=data.dtype, device=data.device)
+    if ne == 0:
+        return y
+    if nd == 0 or nrows == 0:
+        return y.zero_()
+    lib = _load()
+    fn = lib.porotpu_dia_rmv_f32 if data.dtype == torch.float32 else lib.porotpu_dia_rmv_f64
+    return _launch("dia_rmv", fn, data, offsets, nd, nrows, x, ne, y)
+
+
+def dia_rmv_ref(data: torch.Tensor, offsets, x: torch.Tensor, ne: int) -> torch.Tensor:
+    """Plain PyTorch version of K2: y[k] = sum_d dpad[d, plo - o_d + k] with
+    dpad the zero-padded product data * x (porotpu/ops/dia.py:579-594)."""
+    offs = [int(o) for o in offsets]
+    nrows = data.shape[1]
+    if not offs or ne == 0 or nrows == 0:
+        return torch.zeros(ne, dtype=x.dtype, device=x.device)
+    plo = max(max(offs), 0)
+    phi = max(0, ne - min(offs) - nrows)
+    prod = F.pad(data * x, (plo, phi))
+    starts = plo - torch.tensor(offs, dtype=torch.int64, device=x.device)
+    idx = starts[:, None] + torch.arange(ne, device=x.device)[None, :]
+    return torch.gather(prod, 1, idx).sum(0)
+
+
+def rmv(data, offsets, offsets_dev, x, ne):
+    """Transpose product dispatched by device: K2 for a CUDA tensor, its
+    plain version for a CPU tensor."""
+    if x.is_cuda:
+        return dia_rmv(data, offsets_dev, x, ne)
+    COUNTS["plain"] += 1
+    return dia_rmv_ref(data, offsets, x, ne)
+
+
+# -- K3 ----------------------------------------------------------------------
+
+
+def pads(offsets) -> tuple[int, int]:
+    """(lo, hi): the zeros K3's input carries before and after x."""
+    return max(0, -min(offsets)), max(0, max(offsets))
+
+
+def dia_mv_padded(data: torch.Tensor, offsets, offsets_dev: torch.Tensor,
+                  xpad: torch.Tensor) -> torch.Tensor:
+    """Launch K3: y (nrows,) with nrows = data.shape[1].
+
+    data: (nd, nrows) float32 CUDA tensor; ``offsets``: the nd offsets as
+    ints, and ``offsets_dev`` the same as an (nd,) int32 tensor on the
+    card; xpad: (lo + nrows + hi,) float32 with (lo, hi) = ``pads(offsets)``.
+    """
+    nd, nrows = _check("dia_mv_padded", data, offsets_dev, xpad, (torch.float32,))
+    if len(offsets) != nd:
+        raise ValueError(f"dia_mv_padded: {len(offsets)} host offsets for {nd} diagonals")
+    lo, hi = pads(offsets) if nd else (0, 0)
+    if xpad.shape[0] != lo + nrows + hi:
+        raise ValueError(
+            f"dia_mv_padded: xpad has {xpad.shape[0]} values, the offsets need "
+            f"{lo} + {nrows} + {hi}"
+        )
+    y = torch.empty(nrows, dtype=data.dtype, device=data.device)
+    if nrows == 0:
+        return y
+    if nd == 0:
+        return y.zero_()
+    lib = _load()
+    return _launch("dia_mv_padded", lib.porotpu_dia_mv_padded_f32, data, offsets_dev,
+                   nd, nrows, xpad, lo, y)
+
+
+def dia_mv_padded_ref(data: torch.Tensor, offsets, xpad: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K3: the windows xpad[lo + o_d : lo + o_d +
+    nrows] (an ``unfold`` of xpad), weighted by the diagonals and summed."""
+    nd, nrows = data.shape
+    if nd == 0 or nrows == 0:
+        return torch.zeros(nrows, dtype=xpad.dtype, device=xpad.device)
+    lo, _ = pads(offsets)
+    windows = xpad.unfold(0, nrows, 1)  # windows[s] = xpad[s : s + nrows]
+    idx = torch.as_tensor(offsets, dtype=torch.int64, device=xpad.device) + lo
+    return (data * windows[idx]).sum(0)
+
+
+def mv_padded(data, offsets, offsets_dev, xpad):
+    """Pre-padded banded product dispatched by device: K3 for a CUDA tensor,
+    its plain version for a CPU tensor."""
+    if xpad.is_cuda:
+        return dia_mv_padded(data, offsets, offsets_dev, xpad)
+    COUNTS["plain"] += 1
+    return dia_mv_padded_ref(data, offsets, xpad)

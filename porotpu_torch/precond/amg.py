@@ -156,7 +156,7 @@ class AMGLevel(nn.Module):
     def __init__(self, A, P, dinv, lmax):
         super().__init__()
         self.A = A
-        self.P = P  # prolongator; restriction is P^T through its dataT
+        self.P = P  # prolongator; restriction is P^T (K1 on dataT in f32, else K2)
         self.register_buffer("dinv", dinv)
         self.lmax = float(lmax)
 

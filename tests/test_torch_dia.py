@@ -1,12 +1,15 @@
-"""Port parity: kernel K1's plain version and the DIA/Transposed/Dense/ELL/
-FieldMatrix operators of porotpu_torch against porotpu on the same inputs.
+"""Port parity: the plain versions of kernels K1, K2 and K3 and the DIA/
+Transposed/Dense/ELL/FieldMatrix operators of porotpu_torch against
+porotpu on the same inputs.
 
-K1's plain version (``dia_mv_ref``) is held against the Pallas kernel
-(porotpu/ops/pallas_dia.py:mv) in interpret mode, in f32, to 1e-5 of
-max|y| (f32 rounding over up to ~1000 terms).  The operators are held
-against porotpu's on the same CSR in f64 to 1e-12 relative (the two
-differ only in summation order).  The CUDA kernel itself is tested on the
-card by tests/test_torch_gpu.py.
+The plain versions are held against the Pallas kernels in interpret mode,
+in f32, to 1e-5 of max|y| (f32 rounding over up to ~1000 terms): K1's
+(``dia_mv_ref``) and K3's (``dia_mv_padded_ref``, on the padded input)
+against porotpu/ops/pallas_dia.py:mv, K2's (``dia_rmv_ref``) against
+porotpu/ops/pallas_dia.py:rmv.  The operators are held against porotpu's
+on the same CSR in f64 to 1e-12 relative, their transposes to 1e-13 (the
+two differ only in summation order).  The CUDA kernels themselves are
+tested on the card by tests/test_torch_gpu.py.
 """
 
 import jax.numpy as jnp
@@ -23,7 +26,11 @@ from porotpu_torch.models.benchmarks import BENCH_OVERRIDES, swelling_3d
 from porotpu_torch.ops import dia_kernel
 from porotpu_torch.ops.dia import DIA, Dense, Transposed, device_matrix
 from porotpu_torch.ops.sparse import ELL, FieldMatrix
-from torch_k1_cases import CSR_CASES, K1_CASES, banded_random, csr_case, offset_case, small_build
+from porotpu_torch.tools.dia_microbench import banded_csr
+from torch_k1_cases import (
+    CSR_CASES, K1_CASES, K2_CPU_CASES, banded_random, csr_case, offset_case, rmv_case,
+    small_build,
+)
 
 torch.set_num_threads(1)
 
@@ -55,18 +62,17 @@ def test_dia_mv_ref_matches_pallas_interpret(case, build):
 def test_dia_matches_porotpu_f64(case, store_transpose):
     A, emb = csr_case(case)
     D = DIA.from_csr(A, torch.float64, col_emb=emb, store_transpose=store_transpose)
-    J = JDIA.from_csr(A, jnp.float64, col_emb=emb)
+    J = JDIA.from_csr(A, jnp.float64, col_emb=emb, store_transpose=store_transpose)
     assert D.offsets == J.offsets and D.ne == J.ne and D.shape == J.shape
-    assert (D.dataT is not None) == store_transpose
-    if store_transpose:
-        assert D.dataT.shape == (len(D.offsets), D.ne)
+    # porotpu stores dataT for f32 only: every f64 transpose reads A's layout
+    assert D.dataT is None and J.dataT is None
     rng = np.random.default_rng(6)
     x = rng.normal(size=A.shape[1])
     r = rng.normal(size=A.shape[0])
     y = D.matvec(torch.from_numpy(x)).numpy()
     yt = D.rmatvec(torch.from_numpy(r)).numpy()
     np.testing.assert_allclose(y, np.asarray(J.matvec(jnp.asarray(x))), rtol=1e-12, atol=0)
-    np.testing.assert_allclose(yt, np.asarray(J.rmatvec(jnp.asarray(r))), rtol=1e-12, atol=0)
+    np.testing.assert_allclose(yt, np.asarray(J.rmatvec(jnp.asarray(r))), rtol=1e-13, atol=0)
     np.testing.assert_allclose(y, A @ x, rtol=1e-12)
     np.testing.assert_allclose(yt, A.T @ r, rtol=1e-12)
     np.testing.assert_allclose(D.to_dense(), A.toarray(), rtol=1e-12)
@@ -74,6 +80,76 @@ def test_dia_matches_porotpu_f64(case, store_transpose):
     C = to_torch(J)
     np.testing.assert_allclose(C.matvec(torch.from_numpy(x)).numpy(), y, rtol=1e-12)
     np.testing.assert_allclose(C.rmatvec(torch.from_numpy(r)).numpy(), yt, rtol=1e-12)
+
+
+@pytest.mark.parametrize("case", CSR_CASES)
+def test_dia_transposed_layout_matches_porotpu_f32(case):
+    """f32 stores dataT as porotpu does, and its transpose (K1 on dataT)
+    agrees with porotpu's."""
+    A, emb = csr_case(case)
+    D = DIA.from_csr(A, torch.float32, col_emb=emb, store_transpose=True)
+    J = JDIA.from_csr(A, jnp.float32, col_emb=emb, store_transpose=True)
+    assert D.dataT is not None and J.dataT is not None
+    np.testing.assert_array_equal(D.dataT.numpy(), np.asarray(J.dataT))
+    r = np.random.default_rng(6).normal(size=A.shape[0]).astype(np.float32)
+    yt = D.rmatvec(torch.from_numpy(r)).numpy()
+    want = np.asarray(J.rmatvec(jnp.asarray(r)))
+    assert np.abs(yt - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("case", K2_CPU_CASES)
+def test_dia_rmv_ref_matches_pallas_interpret(case, monkeypatch):
+    """K2's plain version against the TPU transpose kernel.  The 2048-row
+    case runs the kernel with 8-row tiles, so that the bands cross tile
+    edges and the kernel's edge-slab combine is exercised."""
+    data, offs, x, n = rmv_case(case, None)
+    data = data.astype(np.float32)
+    x = x.astype(np.float32)
+    y = dia_kernel.dia_rmv_ref(torch.from_numpy(data), offs, torch.from_numpy(x), n)
+    if n == 2048:
+        monkeypatch.setattr(pallas_dia, "T_MAX", 8)
+    pallas_dia._rkernel_call.cache_clear()
+    try:
+        ref = np.asarray(
+            pallas_dia.rmv(jnp.asarray(data), offs, jnp.asarray(x), n, interpret=True)
+        )
+    finally:
+        pallas_dia._rkernel_call.cache_clear()
+    assert y.dtype == torch.float32 and y.shape == (n,)
+    err = np.abs(y.numpy() - ref).max() / np.abs(ref).max()
+    assert err <= 1e-5, err
+
+
+@pytest.mark.parametrize(
+    "n,offs", [(1024, tuple(range(-7, 8))), (2048, (-300, -129, -42, 0, 5, 130, 301))]
+)
+def test_dia_mv_padded_ref_matches_pallas_interpret(n, offs):
+    """K3's plain version on the padded input against the TPU kernel K1 on
+    the unpadded one (K3's TPU prototype has no interpret mode)."""
+    rng = np.random.default_rng(14)
+    data = rng.normal(size=(len(offs), n)).astype(np.float32)
+    x = rng.normal(size=n).astype(np.float32)
+    lo, hi = dia_kernel.pads(offs)
+    xpad = torch.from_numpy(np.concatenate([np.zeros(lo, np.float32), x, np.zeros(hi, np.float32)]))
+    y = dia_kernel.dia_mv_padded_ref(torch.from_numpy(data), offs, xpad)
+    ref = np.asarray(pallas_dia.mv(jnp.asarray(data), offs, jnp.asarray(x), n, interpret=True))
+    assert y.dtype == torch.float32 and y.shape == (n,)
+    err = np.abs(y.numpy() - ref).max() / np.abs(ref).max()
+    assert err <= 1e-5, err
+
+
+def test_banded_csr_matches_plain_versions():
+    """The cuSPARSE yardstick's matrix (a torch CSR tensor) computes the
+    functions of K1 and K2 on a rectangular band."""
+    rng = np.random.default_rng(15)
+    nrows, ncols, offs = 40, 70, (-9, -2, 0, 3, 31)
+    data = torch.from_numpy(rng.normal(size=(len(offs), nrows)))
+    x = torch.from_numpy(rng.normal(size=ncols))
+    r = torch.from_numpy(rng.normal(size=nrows))
+    y = banded_csr(data, offs, ncols) @ x
+    yt = banded_csr(data, offs, ncols, transpose=True) @ r
+    torch.testing.assert_close(y, dia_kernel.dia_mv_ref(data, offs, x, nrows), rtol=1e-13, atol=1e-13)
+    torch.testing.assert_close(yt, dia_kernel.dia_rmv_ref(data, offs, r, ncols), rtol=1e-13, atol=1e-13)
 
 
 def test_transposed_dense_ell_match_porotpu_f64():
@@ -133,8 +209,14 @@ def test_fieldmatrix_matches_porotpu_f64():
 
 def test_cpu_dispatch_counts_plain_sweeps():
     A = banded_random(64, [-3, 0, 5], np.random.default_rng(8))
-    D = DIA.from_csr(A, torch.float64, store_transpose=True)
-    dia_kernel.reset_counts()
-    D.matvec(torch.ones(64, dtype=torch.float64))
-    D.rmatvec(torch.ones(64, dtype=torch.float64))
-    assert dia_kernel.COUNTS == {"kernel": 0, "plain": 2}
+    for dtype in (torch.float32, torch.float64):  # rmatvec via dataT, then via A's layout
+        D = DIA.from_csr(A, dtype, store_transpose=True)
+        dia_kernel.reset_counts()
+        D.matvec(torch.ones(64, dtype=dtype))
+        D.rmatvec(torch.ones(64, dtype=dtype))
+        assert dia_kernel.COUNTS == {"dia_mv": 0, "dia_rmv": 0, "dia_mv_padded": 0, "plain": 2}
+    offs = (-3, 0, 5)
+    dia_kernel.mv_padded(
+        torch.ones((3, 64)), offs, torch.tensor(offs, dtype=torch.int32), torch.ones(72)
+    )
+    assert dia_kernel.COUNTS["plain"] == 3 and dia_kernel.COUNTS["dia_mv_padded"] == 0

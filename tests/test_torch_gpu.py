@@ -1,5 +1,6 @@
-"""Kernel K1 on the card: the CUDA banded matvec against its plain PyTorch
-version, f32 to 1e-5 and f64 to 1e-12 of max|y| (summation order only).
+"""Kernels K1, K2 and K3 on the card: each CUDA kernel against its plain
+PyTorch version, f32 to 1e-5 and f64 to 1e-12 of max|y| (summation order
+only).
 
 Every test here needs a CUDA card and skips without one.  This file
 imports no jax, so it runs where jax is absent:
@@ -13,7 +14,7 @@ import torch
 
 from porotpu_torch.ops import dia_kernel
 from porotpu_torch.ops.dia import DIA, Transposed
-from torch_k1_cases import K1_CASES, csr_case, offset_case, small_build
+from torch_k1_cases import K1_CASES, K2_CASES, csr_case, offset_case, rmv_case, small_build
 
 pytestmark = pytest.mark.gpu
 
@@ -26,7 +27,7 @@ def build():
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (kernel K1 has no CPU mode)")
+        pytest.skip("needs a CUDA card (the CUDA kernels have no CPU mode)")
     return torch.device("cuda", 0)
 
 
@@ -37,29 +38,67 @@ def test_k1_cuda_matches_plain(case, dtype, tol, build, cuda_device):
     data = torch.as_tensor(data, dtype=dtype, device=cuda_device)
     x = torch.as_tensor(x, dtype=dtype, device=cuda_device)
     offs_dev = torch.tensor(offs, dtype=torch.int32, device=cuda_device)
-    before = dia_kernel.COUNTS["kernel"]
+    before = dia_kernel.COUNTS["dia_mv"]
     y = dia_kernel.dia_mv(data, offs_dev, x)
     torch.cuda.synchronize()
-    assert dia_kernel.COUNTS["kernel"] == before + 1
+    assert dia_kernel.COUNTS["dia_mv"] == before + 1
     ref = dia_kernel.dia_mv_ref(data, offs, x, nrows)
     err = ((y - ref).abs().max() / ref.abs().max()).item()
     assert err <= tol, err
 
 
-def test_k1_cuda_dia_operators(cuda_device):
-    """DIA and Transposed products on the card: every banded product
-    launches K1, none takes the plain version."""
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("case", K2_CASES)
+def test_k2_cuda_matches_plain(case, dtype, tol, build, cuda_device):
+    data, offs, x, ne = rmv_case(case, build)
+    data = torch.as_tensor(data, dtype=dtype, device=cuda_device)
+    x = torch.as_tensor(x, dtype=dtype, device=cuda_device)
+    offs_dev = torch.tensor(offs, dtype=torch.int32, device=cuda_device)
+    before = dia_kernel.COUNTS["dia_rmv"]
+    y = dia_kernel.dia_rmv(data, offs_dev, x, ne)
+    torch.cuda.synchronize()
+    assert dia_kernel.COUNTS["dia_rmv"] == before + 1 and y.shape == (ne,)
+    ref = dia_kernel.dia_rmv_ref(data, offs, x, ne)
+    err = ((y - ref).abs().max() / ref.abs().max()).item()
+    assert err <= tol, err
+
+
+def test_k3_cuda_matches_plain_and_k1(cuda_device):
+    rng = np.random.default_rng(10)
+    n, offs = 5000, tuple(range(-40, 41)) + (300,)
+    data = torch.as_tensor(rng.normal(size=(len(offs), n)), dtype=torch.float32,
+                           device=cuda_device)
+    x = torch.as_tensor(rng.normal(size=n), dtype=torch.float32, device=cuda_device)
+    lo, hi = dia_kernel.pads(offs)
+    xpad = torch.nn.functional.pad(x, (lo, hi))
+    offs_dev = torch.tensor(offs, dtype=torch.int32, device=cuda_device)
+    before = dia_kernel.COUNTS["dia_mv_padded"]
+    y = dia_kernel.dia_mv_padded(data, offs, offs_dev, xpad)
+    torch.cuda.synchronize()
+    assert dia_kernel.COUNTS["dia_mv_padded"] == before + 1
+    for ref in (dia_kernel.dia_mv_padded_ref(data, offs, xpad), dia_kernel.dia_mv(data, offs_dev, x)):
+        err = ((y - ref).abs().max() / ref.abs().max()).item()
+        assert err <= 1e-5, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k1_cuda_dia_operators(dtype, cuda_device):
+    """DIA and Transposed products on the card: forward products launch K1,
+    transposes K1 on dataT (f32) or K2 (f64), none the plain version."""
     A, emb = csr_case("col_emb")
-    D = DIA.from_csr(A, torch.float64, col_emb=emb, store_transpose=True).to(cuda_device)
+    D = DIA.from_csr(A, dtype, col_emb=emb, store_transpose=True).to(cuda_device)
     rng = np.random.default_rng(9)
     x = rng.normal(size=A.shape[1])
     r = rng.normal(size=A.shape[0])
     dia_kernel.reset_counts()
-    y = D.matvec(torch.as_tensor(x, device=cuda_device))
-    yt = Transposed(D).matvec(torch.as_tensor(r, device=cuda_device))
-    assert dia_kernel.COUNTS == {"kernel": 2, "plain": 0}
-    np.testing.assert_allclose(y.cpu().numpy(), A @ x, rtol=1e-12)
-    np.testing.assert_allclose(yt.cpu().numpy(), A.T @ r, rtol=1e-12)
+    y = D.matvec(torch.as_tensor(x, dtype=dtype, device=cuda_device))
+    yt = Transposed(D).matvec(torch.as_tensor(r, dtype=dtype, device=cuda_device))
+    k2 = int(dtype == torch.float64)
+    assert dia_kernel.COUNTS == {"dia_mv": 2 - k2, "dia_rmv": k2, "dia_mv_padded": 0, "plain": 0}
+    rtol = 1e-12 if k2 else 1e-5
+    for got, want in ((y, A @ x), (yt, A.T @ r)):
+        got = got.cpu().double().numpy()
+        assert np.abs(got - want).max() <= rtol * np.abs(want).max()
 
 
 def test_k1_rejects_bad_input(cuda_device):
@@ -69,6 +108,16 @@ def test_k1_rejects_bad_input(cuda_device):
         dia_kernel.dia_mv(data, offs, torch.ones(8, dtype=torch.float64, device=cuda_device))
     with pytest.raises(ValueError):
         dia_kernel.dia_mv(data, offs[:1], torch.ones(8, device=cuda_device))
-    with pytest.raises(NotImplementedError):
-        D = DIA(data, (0, 1), 8, 8).to(cuda_device)
-        D.rmatvec(torch.ones(8, device=cuda_device))
+    # a DIA without dataT transposes through K2 (it raised before K2 existed)
+    D = DIA(data, (0, 1), 8, 8).to(cuda_device)
+    yt = D.rmatvec(torch.ones(8, device=cuda_device))
+    torch.testing.assert_close(yt.cpu(), torch.tensor([1.0] + [2.0] * 7))
+    with pytest.raises(ValueError, match="input of length"):
+        dia_kernel.dia_rmv(data, offs, torch.ones(9, device=cuda_device), 8)
+    assert dia_kernel.dia_rmv(data, offs, torch.ones(8, device=cuda_device), 0).shape == (0,)
+    assert dia_kernel.dia_rmv(data[:0], offs[:0], torch.ones(8, device=cuda_device), 5).eq(0).all()
+    with pytest.raises(TypeError):
+        dia_kernel.dia_mv_padded(data.double(), (0, 1), offs, torch.ones(9, dtype=torch.float64,
+                                                                          device=cuda_device))
+    with pytest.raises(ValueError, match="xpad has"):
+        dia_kernel.dia_mv_padded(data, (0, 1), offs, torch.ones(8, device=cuda_device))

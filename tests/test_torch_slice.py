@@ -92,7 +92,8 @@ def test_port_runs_without_jax(jax_blocked):
 
 
 def test_port_sources_never_import_jax():
-    pat = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.M)
+    """Neither jax nor anything named porotpu (the port keeps its own copies)."""
+    pat = re.compile(r"^\s*(import\s+(jax|porotpu\b)|from\s+(jax|porotpu)[\s.])", re.M)
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "porotpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]

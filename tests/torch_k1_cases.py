@@ -10,6 +10,10 @@ from porotpu_torch.models.benchmarks import BENCH_OVERRIDES, swelling_3d
 from porotpu_torch.ops.dia import Transposed
 
 K1_CASES = ["test_dia_set_1024", "test_dia_set_3072", "solid_block_233", "transposed_inner_714"]
+# K2: two offset sets of tests/test_dia.py's rmv cases at nrows 1024 and
+# 2048, and the transposes of the N=3 build (prolongator, Transposed block)
+K2_CASES = ["rmv_set_1024", "rmv_set_2048", "prolongator_L0", "transposed_block_714"]
+K2_CPU_CASES = K2_CASES[:2]
 CSR_CASES = ["square", "col_emb", "rect_wide", "rect_no_emb"]
 
 
@@ -93,3 +97,23 @@ def csr_case(name):
     rows = np.repeat(np.arange(n), 2)
     cols = np.clip(rows + rng.integers(0, 20, size=rows.size), 0, m - 1)
     return sp.csr_matrix((rng.normal(size=rows.size), (rows, cols)), shape=(n, m)), None
+
+
+def rmv_case(name, build):
+    """(data (nd, nrows), offsets, x (nrows,), ne) in f64 for one K2 case."""
+    rng = np.random.default_rng(13)
+    if name == "rmv_set_1024":
+        n, offs = 1024, (-300, -129, -128, -1, 0, 1, 127, 128, 301)
+        return rng.normal(size=(len(offs), n)), offs, rng.normal(size=n), n
+    if name == "rmv_set_2048":
+        n, offs = 2048, (-520, -300, -42, 0, 5, 130, 515)
+        return rng.normal(size=(len(offs), n)), offs, rng.normal(size=n), n
+    if name == "prolongator_L0":
+        P = build.pc.solve_s.mods["amg"].levels[0].P
+        D = P.inner if isinstance(P, Transposed) else P
+    else:
+        # the Transposed coupling from K1_CASES on A's own layout:
+        # 128 inputs -> 1152 outputs
+        D = build.A_dev.block("f", "p").inner
+        assert len(D.offsets) >= 700 and D.ne != D.nrows
+    return rng.normal(size=D.data.shape), D.offsets, rng.normal(size=D.nrows), D.ne

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where one swelling-3d solve of the PyTorch/CUDA port spends its time.
 
-    python3 tools/profile_torch_solve.py
+    python3 tools/profile_torch_solve.py [float32|float64]
 
-Builds the bench configuration (bench.py overrides, f32) on cuda:0,
+Builds the bench configuration (bench.py overrides, f32 unless float64
+is named: then every transpose runs K2) on cuda:0,
 solves once to warm up, then profiles one solve with torch.profiler and
 prints: wall time, the summed device time of all kernels and its share
 of the wall time (the rest is the device waiting on the host), and the
@@ -24,7 +25,7 @@ def _device_us(e):
     return v if v is not None else e.self_cuda_time_total
 
 
-def main():
+def main(dtype="float32"):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -35,7 +36,7 @@ def main():
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
-    problem = swelling_3d(13, overrides=dict(BENCH_OVERRIDES), device=dev)
+    problem = swelling_3d(13, overrides=dict(BENCH_OVERRIDES, dtype=dtype), device=dev)
     problem.create_solver()
     problem.first_timestep = False
     b = problem.get_rhs(problem.t0 + problem.dt)
@@ -54,7 +55,7 @@ def main():
         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
     ]
     dev_us = sum(_device_us(e) for e in kernels)
-    print(f"{torch.cuda.get_device_name(0)}: one solve, {res.iters} iterations, "
+    print(f"{torch.cuda.get_device_name(0)}, {dtype}: one solve, {res.iters} iterations, "
           f"wall {wall * 1e3:.3f} ms, device busy {dev_us / 1e3:.3f} ms "
           f"({100 * dev_us / 1e6 / wall:.1f}% of wall), {sum(e.count for e in kernels)} kernels")
     for e in sorted(kernels, key=lambda e: -_device_us(e))[:12]:
@@ -64,4 +65,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(*sys.argv[1:2]))
