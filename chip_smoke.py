@@ -109,19 +109,6 @@ def k2_sets(problem):
     return sets
 
 
-def transpose_layout(data, offsets, ne, torch):
-    """dataT (nd, ne) with dataT[d, i + o_d] = data[d, i] for the rows that
-    land inside [0, ne): the transposed layout K1 reads, built on the card."""
-    nd, nrows = data.shape
-    dst = torch.arange(nrows, device=data.device)[None, :] + torch.as_tensor(
-        offsets, dtype=torch.int64, device=data.device)[:, None]
-    ok = (dst >= 0) & (dst < ne)
-    d_idx = torch.arange(nd, device=data.device)[:, None].expand_as(dst)
-    dataT = torch.zeros((nd, ne), dtype=data.dtype, device=data.device)
-    dataT[d_idx[ok], dst[ok]] = data[ok]
-    return dataT
-
-
 def path_run(problem, dev, torch, dia_kernel, FieldwiseTest):
     """One step through ``problem.solve()`` (host setup included) with the
     dispatch counts reset just before and read just after, then three timed
@@ -180,6 +167,7 @@ def main():
 
     from porotpu_torch.models.benchmarks import BENCH_OVERRIDES, swelling_3d
     from porotpu_torch.ops import dia_kernel
+    from porotpu_torch.ops.dia import transpose_layout
     from porotpu_torch.solvers.convergence import FieldwiseTest
     from porotpu_torch.tools import dia_microbench as mb
 
@@ -293,7 +281,7 @@ def main():
         y = dia_kernel.dia_rmv(data, offs_dev, x, ne)
         torch.cuda.synchronize()
         rel = compare("dia_rmv", (name, tag), y, dia_kernel.dia_rmv_ref(data, offs, x, ne), tol)
-        dataT = transpose_layout(data, offs, ne, torch)
+        dataT = transpose_layout(data, offs, ne)
         neg_dev = -offs_dev
         y1 = dia_kernel.dia_mv(dataT, neg_dev, x)
         rel_k1 = ((y1 - y).abs().max() / y.abs().max()).item()

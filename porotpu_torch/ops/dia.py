@@ -33,6 +33,20 @@ def _emb_tensor(col_emb):
     )
 
 
+def transpose_layout(data: torch.Tensor, offsets, ne: int) -> torch.Tensor:
+    """The transposed layout dataT (nd, ne), dataT[d, i + offsets[d]] =
+    data[d, i] for the rows that land inside [0, ne), zero elsewhere; built
+    on data's device."""
+    nd, nrows = data.shape
+    dst = torch.arange(nrows, device=data.device)[None, :] + torch.as_tensor(
+        offsets, dtype=torch.int64, device=data.device)[:, None]
+    ok = (dst >= 0) & (dst < ne)
+    d_idx = torch.arange(nd, device=data.device)[:, None].expand_as(dst)
+    dataT = torch.zeros((nd, ne), dtype=data.dtype, device=data.device)
+    dataT[d_idx[ok], dst[ok]] = data[ok]
+    return dataT
+
+
 class DIA(nn.Module):
     """Banded matrix with static diagonal offsets.
 
@@ -95,13 +109,12 @@ class DIA(nn.Module):
         data = np.zeros((nd, n), dtype=np_dtype)
         data[didx, coo.row] = coo.data
         offs = list(int(o) for o in offsets) or [0]
+        data = torch.from_numpy(data)
         dataT = None
         if store_transpose and dtype == torch.float32:
             ne = m if col_emb is None else max(n, int(col_emb.max()) + 1)
-            dT = np.zeros((nd, ne), dtype=np_dtype)
-            dT[didx, ecol] = coo.data
-            dataT = torch.from_numpy(dT)
-        return cls(torch.from_numpy(data), tuple(offs), n, m, col_emb, dataT=dataT)
+            dataT = transpose_layout(data, offs, ne)
+        return cls(data, tuple(offs), n, m, col_emb, dataT=dataT)
 
     # -- products -------------------------------------------------------
 

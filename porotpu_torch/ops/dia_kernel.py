@@ -9,10 +9,11 @@
   lo = max(0, -min off) and hi = max(0, max off), no bounds test
   (tools/pallas_dia.py:pallas_dia_matvec; ``csrc/dia_mv_padded.cu``).
 
-The dispatch functions ``mv``, ``rmv`` and ``mv_padded`` launch the CUDA
-kernel for a CUDA tensor and run the plain version (``*_ref``) for a CPU
-tensor.  There is no fallback between the two: a CUDA tensor whose kernel
-fails to build or launch raises.
+The dispatch functions ``mv`` and ``rmv`` launch the CUDA kernel for a
+CUDA tensor and run the plain version (``*_ref``) for a CPU tensor.  There
+is no fallback between the two: a CUDA tensor whose kernel fails to build
+or launch raises.  K3's only caller, the microbench, runs on the card and
+launches ``dia_mv_padded`` directly.
 
 Every ``csrc/*.cu`` is compiled by ``nvcc`` at first use, one process per
 source, all started together, and linked into one library under
@@ -328,12 +329,3 @@ def dia_mv_padded_ref(data: torch.Tensor, offsets, xpad: torch.Tensor) -> torch.
     windows = xpad.unfold(0, nrows, 1)  # windows[s] = xpad[s : s + nrows]
     idx = torch.as_tensor(offsets, dtype=torch.int64, device=xpad.device) + lo
     return (data * windows[idx]).sum(0)
-
-
-def mv_padded(data, offsets, offsets_dev, xpad):
-    """Pre-padded banded product dispatched by device: K3 for a CUDA tensor,
-    its plain version for a CPU tensor."""
-    if xpad.is_cuda:
-        return dia_mv_padded(data, offsets, offsets_dev, xpad)
-    COUNTS["plain"] += 1
-    return dia_mv_padded_ref(data, offsets, xpad)

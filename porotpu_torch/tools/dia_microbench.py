@@ -6,9 +6,10 @@ beside K1 on the same data and cuSPARSE.
 
 Counterpart of tools/pallas_dia.py:main.  The same problem: n = 98304
 rows, nd = 233 diagonals with offsets range(-116, 117), the ``_pattern``
-data and input, f32.  K3 (``dia_kernel.mv_padded``) reads x zero-padded by
-lo = 116 before and hi = 116 after, with no bounds test; K1
-(``dia_kernel.mv``) reads the unpadded x through its per-diagonal mask;
+data and input, f32.  K3 (``dia_kernel.dia_mv_padded``) reads x
+zero-padded by lo = 116 before and hi = 116 after, with no bounds test;
+K1 (``dia_kernel.dia_mv``) reads the unpadded x through its per-diagonal
+mask;
 the library call is ``A @ x`` on a torch sparse CSR tensor (cuSPARSE),
 a yardstick only.  All three are checked against the numpy reference to
 1e-5 of max|y|, and K3 against its plain version and against K1.
@@ -36,6 +37,9 @@ from ..ops import dia_kernel
 # tensor cores (the banded products do one multiply-add per stored value)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
+# timed calls per launch measurement, and steps per chained measurement
+REPS = 50
+STEPS = 20
 
 
 def bound(nbytes, flops, dtype):
@@ -100,11 +104,11 @@ def _pattern(n, seed=0):
     return (((i * np.int32(1103 + seed)) % 1009).astype(np.float32) - 504.0) * np.float32(1e-3)
 
 
-def run(n=98304, nd=233, reps=50, steps=20, device="cuda"):
-    """Check and time K3, K1 and cuSPARSE on the card; returns the record."""
-    dev = torch.device(device)
-    if dev.type != "cuda" or not torch.cuda.is_available():
+def run(n=98304, nd=233):
+    """Check and time K3, K1 and cuSPARSE on card 0; returns the record."""
+    if not torch.cuda.is_available():
         raise RuntimeError("dia_microbench measures the card: it needs a CUDA device")
+    dev = torch.device("cuda", 0)
     half = nd // 2
     offsets = tuple(range(-half, nd - half))
     lo, hi = dia_kernel.pads(offsets)
@@ -123,8 +127,8 @@ def run(n=98304, nd=233, reps=50, steps=20, device="cuda"):
     A = banded_csr(data, offsets, n)
 
     routes = {
-        "k3": lambda xp_, x_: dia_kernel.mv_padded(data, offsets, offs_dev, xp_),
-        "k1": lambda xp_, x_: dia_kernel.mv(data, offsets, offs_dev, x_, n),
+        "k3": lambda xp_, x_: dia_kernel.dia_mv_padded(data, offsets, offs_dev, xp_),
+        "k1": lambda xp_, x_: dia_kernel.dia_mv(data, offs_dev, x_),
         "cusparse": lambda xp_, x_: A @ x_,
     }
     ys = {k: f(xpad, x) for k, f in routes.items()}
@@ -165,7 +169,7 @@ def run(n=98304, nd=233, reps=50, steps=20, device="cuda"):
     turns = {k: [] for k in routes}
     for k in list(routes) + list(routes)[::-1]:
         f = routes[k]
-        turns[k].append((cuda_ms(lambda: f(xpad, x), reps), cuda_ms(chain(k), steps)))
+        turns[k].append((cuda_ms(lambda: f(xpad, x), REPS), cuda_ms(chain(k), STEPS)))
     out = {"n": n, "nd": nd, "errors": errs, "max_abs_err": abs_err}
     for k in routes:
         ms, chain_ms = min(t[0] for t in turns[k]), min(t[1] for t in turns[k])

@@ -57,12 +57,11 @@ def test_dia_mv_ref_matches_pallas_interpret(case, build):
     assert err <= 1e-5, err
 
 
-@pytest.mark.parametrize("store_transpose", [False, True])
 @pytest.mark.parametrize("case", CSR_CASES)
-def test_dia_matches_porotpu_f64(case, store_transpose):
+def test_dia_matches_porotpu_f64(case):
     A, emb = csr_case(case)
-    D = DIA.from_csr(A, torch.float64, col_emb=emb, store_transpose=store_transpose)
-    J = JDIA.from_csr(A, jnp.float64, col_emb=emb, store_transpose=store_transpose)
+    D = DIA.from_csr(A, torch.float64, col_emb=emb, store_transpose=True)
+    J = JDIA.from_csr(A, jnp.float64, col_emb=emb, store_transpose=True)
     assert D.offsets == J.offsets and D.ne == J.ne and D.shape == J.shape
     # porotpu stores dataT for f32 only: every f64 transpose reads A's layout
     assert D.dataT is None and J.dataT is None
@@ -118,6 +117,32 @@ def test_dia_rmv_ref_matches_pallas_interpret(case, monkeypatch):
     assert y.dtype == torch.float32 and y.shape == (n,)
     err = np.abs(y.numpy() - ref).max() / np.abs(ref).max()
     assert err <= 1e-5, err
+
+
+@pytest.mark.parametrize(
+    "nrows,ne,offs",
+    [
+        (50, 30, (-4, 0, 3, 20)),  # output shorter than the rows
+        (30, 50, (-4, 0, 3, 20)),  # output longer than the rows
+        (30, 40, (-60, -31, 0, 35, 90)),  # bands with no row inside [0, ne)
+        (30, 40, ()),  # no diagonals
+        (30, 0, (-4, 0, 3)),  # empty output
+    ],
+    ids=["ne_lt_nrows", "ne_gt_nrows", "far_bands", "no_diagonals", "empty_output"],
+)
+def test_dia_rmv_ref_matches_dense(nrows, ne, offs):
+    """K2's plain version against the dense transpose of the band it reads:
+    A[i, i + o_d] = data[d, i] over the columns inside [0, ne)."""
+    rng = np.random.default_rng(16)
+    data = rng.normal(size=(len(offs), nrows))
+    x = rng.normal(size=nrows)
+    A = np.zeros((nrows, ne))
+    for d, o in enumerate(offs):
+        i = np.arange(max(0, -o), max(0, min(nrows, ne - o)))
+        A[i, i + o] = data[d, i]
+    y = dia_kernel.dia_rmv_ref(torch.from_numpy(data), offs, torch.from_numpy(x), ne)
+    assert y.dtype == torch.float64 and y.shape == (ne,)
+    np.testing.assert_allclose(y.numpy(), A.T @ x, rtol=1e-13, atol=1e-13)
 
 
 @pytest.mark.parametrize(
@@ -215,8 +240,3 @@ def test_cpu_dispatch_counts_plain_sweeps():
         D.matvec(torch.ones(64, dtype=dtype))
         D.rmatvec(torch.ones(64, dtype=dtype))
         assert dia_kernel.COUNTS == {"dia_mv": 0, "dia_rmv": 0, "dia_mv_padded": 0, "plain": 2}
-    offs = (-3, 0, 5)
-    dia_kernel.mv_padded(
-        torch.ones((3, 64)), offs, torch.tensor(offs, dtype=torch.int32), torch.ones(72)
-    )
-    assert dia_kernel.COUNTS["plain"] == 3 and dia_kernel.COUNTS["dia_mv_padded"] == 0

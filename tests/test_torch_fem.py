@@ -6,14 +6,12 @@ are copies of porotpu's.  On swelling-3d N=2 (P2/P2/P1) they must give
 the same mesh, dofmaps, BC dofs and load vector (equal arrays) and the
 same assembled CSR blocks: equal index arrays and data to 1e-14 relative
 (the copies run the same numpy code, so any difference is a fault of the
-copy).  A solve of the port must load no module of porotpu, and the entry
-points run on the card unless asked for the CPU.
+copy).  The entry points run on the card unless asked for the CPU; that a
+solve loads no module of porotpu is checked by
+tests/test_torch_slice.py:test_port_runs_without_jax.
 """
 
 import inspect
-import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -27,7 +25,6 @@ from porotpu_torch.fem.dofmap import vertex_embedding
 from porotpu_torch.models.benchmarks import BENCH_OVERRIDES, swelling_3d
 from porotpu_torch.models.poromechanics import Poromechanics
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F64 = dict(BENCH_OVERRIDES, dtype="float64")
 
 
@@ -76,27 +73,6 @@ def test_assembled_blocks_match_porotpu_csr(which, problems):
         np.testing.assert_array_equal(M.indices, J.indices)
         scale = np.abs(J.data).max()
         np.testing.assert_allclose(M.data, J.data, rtol=1e-14, atol=1e-14 * scale)
-
-
-def test_solve_loads_no_porotpu_module():
-    """Build and solve swelling-3d N=2 on the CPU in a fresh process: no
-    module named porotpu may be loaded afterwards."""
-    code = (
-        "import sys\n"
-        "from porotpu_torch.models.benchmarks import BENCH_OVERRIDES, swelling_3d\n"
-        "p = swelling_3d(2, overrides=dict(BENCH_OVERRIDES, dtype='float64'), device='cpu')\n"
-        "assert p.solve() and p.last_result.converged\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] == 'porotpu']\n"
-        "assert bad == [], bad\n"
-        "print('SOLVED')\n"
-    )
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    proc = subprocess.run(
-        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
-        text=True, timeout=300,
-    )
-    assert proc.returncode == 0, proc.stderr[-2000:]
-    assert "SOLVED" in proc.stdout
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

@@ -68,7 +68,8 @@ def test_slice_true_residual_guard(solved):
 @pytest.mark.parametrize("jax_blocked", [True, False])
 def test_port_runs_without_jax(jax_blocked):
     """Import, build and solve swelling-3d N=2 with jax unimportable, and
-    with jax importable: the port must not import it either way."""
+    with jax importable: the port must import neither jax nor any module
+    named porotpu either way."""
     code = (
         "import sys\n"
         + ("sys.modules['jax'] = None\n" if jax_blocked else "")
@@ -78,6 +79,8 @@ def test_port_runs_without_jax(jax_blocked):
         "assert p.last_result.converged, its\n"
         "jax = [m for m in sys.modules if m.split('.')[0] == 'jax']\n"
         f"assert jax == {['jax'] if jax_blocked else []!r}, jax\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] == 'porotpu']\n"
+        "assert bad == [], bad\n"
         "print('SOLVED', its[0])\n"
     )
     env = dict(os.environ)
