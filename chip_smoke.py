@@ -12,9 +12,10 @@
    ``problem.solve()``: FGMRES + the 2-way block preconditioner with AMG.
    The dispatch counts are reset just before and read just after; the
    run fails unless K1 launched, K2 did not (f32 transposes run K1 on
-   dataT) and no banded product took a plain PyTorch version.  Then three
-   timed solves on distinct right-hand sides (CUDA events, median) and
-   bench.py's true-residual field-wise guard.
+   dataT) and no banded product took a plain PyTorch version.  The
+   launches of the step are also printed by operator (kernel, dtype, nd,
+   nrows).  Then three timed solves on distinct right-hand sides (CUDA
+   events, median) and bench.py's true-residual field-wise guard.
 3. K2's path: the same configuration in f64, where no operator stores
    dataT and every transpose (each restriction P^T r, each Transposed
    coupling block) runs K2.  One step with the counts reset around it
@@ -23,12 +24,20 @@
 4. K1 against its plain version on the offset sets of the built N=13
    operators (the 233-band level-0 A, the 681-band level-1 A, an embedded
    coupling block and a restriction through dataT on negated offsets), in
-   f32 (max error <= 1e-5 of max|y|) and f64 (<= 1e-12); beside each
-   time, the bound and cuSPARSE on the same matrix.
+   f32 (max error <= 1e-5 of max|y|) and f64 (<= 1e-12), each launched
+   twice and held bitwise equal; beside each time, the bound and cuSPARSE
+   on the same matrix.
 5. K2 against its plain version on the transposed products of the built
    N=13 f32 and f64 operators (each banded prolongator of the solid AMG
-   and the widest Transposed coupling block), same tolerances; beside each time, K1 on
-   a dataT built on the card from the same data, the bound and cuSPARSE.
+   and the widest Transposed coupling block), same tolerances and the same
+   repeat check; beside each time, K1 on a dataT built on the card from
+   the same data, the bound and cuSPARSE.
+   Every kernel and cuSPARSE is timed two ways (CUDA events, mean per
+   launch): back to back, which keeps a set under 50 MB warm in the L2 as
+   the solve's repeated products find it, and with the L2 flushed before
+   each launch (cold).  The bound share is taken from the cold time, and
+   each set prints its launches in the step of its path and launches x
+   (cold time - bound).
 6. A small input against a reference: swelling-3d N=3 in f64 on the card
    (K2 included) and on the CPU (plain versions) must take the same
    iterations and agree to 1e-10.
@@ -47,6 +56,7 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 
 
 def check(cond, msg):
@@ -113,18 +123,24 @@ def path_run(problem, dev, torch, dia_kernel, FieldwiseTest):
     """One step through ``problem.solve()`` (host setup included) with the
     dispatch counts reset just before and read just after, then three timed
     solves on distinct right-hand sides and the true-residual guard.
-    Returns the dispatch counts of the step."""
+    Returns the dispatch counts of the step, and its launches by operator."""
     torch.cuda.reset_peak_memory_stats(dev)
     dia_kernel.reset_counts()
     iterations = problem.solve()
     counts = dict(dia_kernel.COUNTS)
+    launches = dict(dia_kernel.LAUNCHES)
     res = problem.last_result
     hist = [float(h) for h in res.history[: res.iters + 1]]
     print(f"host setup: {problem.t_setup:.2f} s, first solve: {problem.t_solve_total:.4f} s")
     print(f"iterations={iterations} converged={res.converged} residual={res.res:.4e}")
     print("residual history:", " ".join(f"{h:.4e}" for h in hist))
-    print("dispatch counts in the solve: " + ", ".join(f"{k}={v}" for k, v in counts.items()),
-          flush=True)
+    print("dispatch counts in the solve: " + ", ".join(f"{k}={v}" for k, v in counts.items()))
+    print("launches by operator (kernel dtype nd nrows: launches):")
+    # heaviest first: launches x diagonals x rows
+    for (kernel, dt, nd, nrows), n in sorted(launches.items(),
+                                             key=lambda kv: -kv[1] * kv[0][2] * kv[0][3]):
+        print(f"  {kernel} {dt} {nd} {nrows}: {n}")
+    sys.stdout.flush()
     check(res.converged, "the solve did not converge")
 
     b = problem.get_rhs(problem.t)
@@ -153,7 +169,7 @@ def path_run(problem, dev, torch, dia_kernel, FieldwiseTest):
     print(f"peak device memory allocated: {peak / 2**20:.1f} MiB", flush=True)
     if iterations != [9]:
         print(f"NOTE: {iterations[0]} iterations, the porotpu oracle (BENCH_r05) took 9")
-    return counts
+    return counts, launches
 
 
 def main():
@@ -203,7 +219,7 @@ def main():
     print(f"dofs={dofs} padded sizes={padded}")
     check(dofs == 120842, f"dofs {dofs} != 120842")
     check(padded == (59136, 59136, 2816), f"padded sizes {padded}")
-    counts32 = path_run(f32, dev, torch, dia_kernel, FieldwiseTest)
+    counts32, launches32 = path_run(f32, dev, torch, dia_kernel, FieldwiseTest)
     check(counts32["dia_mv"] > 0, "K1 was never launched on the main path")
     check(counts32["dia_rmv"] == 0, "K2 ran on the f32 path, whose transposes read dataT")
     check(counts32["plain"] == 0, f"{counts32['plain']} banded products took a plain version")
@@ -218,7 +234,7 @@ def main():
     # -- 3. K2's path: swelling-3d N=13 f64, one step -----------------------
     print("-- f64 (K2 path)", flush=True)
     f64 = swelling_3d(13, overrides=dict(BENCH_OVERRIDES, dtype="float64"), device=dev)
-    counts64 = path_run(f64, dev, torch, dia_kernel, FieldwiseTest)
+    counts64, launches64 = path_run(f64, dev, torch, dia_kernel, FieldwiseTest)
     check(counts64["dia_rmv"] > 0, "K2 was never launched on the f64 path")
     check(counts64["dia_mv"] > 0, "K1 was never launched on the f64 path")
     check(counts64["plain"] == 0, f"{counts64['plain']} banded products took a plain version")
@@ -232,15 +248,45 @@ def main():
 
     rng = np.random.default_rng(0)
     dtypes = {"f32": (torch.float32, 1e-5), "f64": (torch.float64, 1e-12)}
+    path_launches = {"f32": launches32, "f64": launches64}
     record = {}  # (kernel, set, dtype) -> dict of numbers
     max_abs = {"dia_mv": 0.0, "dia_rmv": 0.0}
 
-    def compare(kernel, key, y, ref, tol):
+    def compare(kernel, key, run, ref, tol):
+        """Launch twice: bitwise equal, and within tol of max|ref|."""
+        y, y2 = run(), run()
+        torch.cuda.synchronize()
+        check(torch.equal(y, y2), f"{kernel} {key}: two launches differ")
         abs_err = (y - ref).abs().max().item()
         rel = abs_err / ref.abs().max().item()
         check(rel <= tol, f"{kernel} {key} disagrees with its plain version ({rel:.2e})")
         max_abs[kernel] = max(max_abs[kernel], abs_err)
-        return rel
+        return y, rel
+
+    def timing(kernel, name, tag, run, lib, plain, entries, n_in, n_out, dtype, nd, nrows):
+        """Warm and cold times of the kernel and cuSPARSE, the plain time,
+        the bound and the set's launches in its path's step."""
+        nbytes = (entries + n_in + n_out) * dtype.itemsize
+        b_ms, b_by = mb.bound(nbytes, 2 * entries, dtype)
+        key = (kernel, str(dtype).removeprefix("torch."), nd, nrows)
+        rec = dict(
+            warm_ms=mb.cuda_ms(run, 50), ms=mb.cold_ms(run, 30),
+            library_warm_ms=mb.cuda_ms(lib, 50), library_ms=mb.cold_ms(lib, 30),
+            plain_ms=mb.cuda_ms(plain, 10), bound_ms=b_ms, bound_by=b_by, nbytes=nbytes,
+            launches=path_launches[tag].get(key, 0),
+        )
+        record[kernel, name, tag] = rec
+        return rec
+
+    def report(label, rec, rel, extra=""):
+        print(f"{label}: err {rel:.2e}; cold {rec['ms']:.4f} ms "
+              f"({100 * rec['bound_ms'] / rec['ms']:.1f}% of the {rec['bound_by']} bound "
+              f"{rec['bound_ms']:.4f} ms, {rec['nbytes'] / 1e6:.1f} MB), "
+              f"warm {rec['warm_ms']:.4f} ms; "
+              f"cuSPARSE cold {rec['library_ms']:.4f} warm {rec['library_warm_ms']:.4f} ms; "
+              f"plain {rec['plain_ms']:.4f} ms; {rec['launches']} launches in the step, "
+              f"x (cold - bound) = {rec['launches'] * (rec['ms'] - rec['bound_ms']):.3f} ms"
+              + extra, flush=True)
 
     # -- 4. K1 against its plain version on the N=13 offset sets -------------
     for name, (shape, offs, n_in) in sets1.items():
@@ -252,23 +298,28 @@ def main():
         for tag, (dtype, tol) in dtypes.items():
             data = torch.as_tensor(data64, dtype=dtype, device=dev)
             x = torch.as_tensor(x64, dtype=dtype, device=dev)
-            y = dia_kernel.dia_mv(data, offs_dev, x)
-            torch.cuda.synchronize()
-            rel = compare("dia_mv", (name, tag), y, dia_kernel.dia_mv_ref(data, offs, x, nrows), tol)
+            plan = dia_kernel.launch_plan(nd, nrows, n_in, dtype)
+            run = lambda: dia_kernel.dia_mv(data, offs_dev, x)  # noqa: E731
+            y, rel = compare("dia_mv", (name, tag), run,
+                             dia_kernel.dia_mv_ref(data, offs, x, nrows), tol)
             A = mb.banded_csr(data, offs, n_in)
             rel_lib = ((A @ x - y).abs().max() / y.abs().max()).item()
-            ms = mb.cuda_ms(lambda: dia_kernel.dia_mv(data, offs_dev, x), 50)
-            plain_ms = mb.cuda_ms(lambda: dia_kernel.dia_mv_ref(data, offs, x, nrows), 10)
-            lib_ms = mb.cuda_ms(lambda: A @ x, 50)
-            nbytes = (entries + n_in + nrows) * data.element_size()
-            b_ms, b_by = mb.bound(nbytes, 2 * entries, dtype)
-            record["dia_mv", name, tag] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                               bound_ms=b_ms, bound_by=b_by)
-            print(f"K1 {name} nd={nd} nrows={nrows} n_in={n_in} {tag}: err {rel:.2e} "
-                  f"(tol {tol:g}), {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, "
-                  f"{100 * b_ms / ms:.1f}% of the {b_by} bound {b_ms:.4f} ms), "
-                  f"plain {plain_ms:.4f} ms, cuSPARSE {lib_ms:.4f} ms (err {rel_lib:.1e})",
-                  flush=True)
+            rec = timing("dia_mv", name, tag, run, lambda: A @ x,
+                         lambda: dia_kernel.dia_mv_ref(data, offs, x, nrows),
+                         entries, n_in, nrows, dtype, nd, nrows)
+            report(f"K1 {name} nd={nd} nrows={nrows} n_in={n_in} offsets {min(offs)}..{max(offs)} "
+                   f"{tag} (tile {plan.tile}, warps {plan.warps}, cluster {plan.cluster})",
+                   rec, rel, f"; cuSPARSE err {rel_lib:.1e}")
+            if (name, tag) == ("L0_A", "f32"):
+                # the wrapper's host time a call, with the device kept busy
+                torch.cuda.synchronize()
+                torch.cuda._sleep(mb.SLEEP_CYCLES)
+                t0 = time.perf_counter()
+                for _ in range(200):
+                    run()
+                host_us = (time.perf_counter() - t0) / 200 * 1e6
+                torch.cuda.synchronize()
+                print(f"host time a dia_mv call (check, plan, launch): {host_us:.1f} us")
             del A
 
     # -- 5. K2 against its plain version, K1 on dataT and cuSPARSE beside -----
@@ -278,38 +329,28 @@ def main():
         data = torch.as_tensor(rng.normal(size=shape), dtype=dtype, device=dev)
         x = torch.as_tensor(rng.normal(size=nrows), dtype=dtype, device=dev)
         offs_dev = torch.tensor(offs, dtype=torch.int32, device=dev)
-        y = dia_kernel.dia_rmv(data, offs_dev, x, ne)
-        torch.cuda.synchronize()
-        rel = compare("dia_rmv", (name, tag), y, dia_kernel.dia_rmv_ref(data, offs, x, ne), tol)
+        plan = dia_kernel.launch_plan(nd, ne, nrows, dtype)
+        run = lambda: dia_kernel.dia_rmv(data, offs_dev, x, ne)  # noqa: E731
+        y, rel = compare("dia_rmv", (name, tag), run,
+                         dia_kernel.dia_rmv_ref(data, offs, x, ne), tol)
         dataT = transpose_layout(data, offs, ne)
         neg_dev = -offs_dev
-        y1 = dia_kernel.dia_mv(dataT, neg_dev, x)
-        rel_k1 = ((y1 - y).abs().max() / y.abs().max()).item()
+        run_k1 = lambda: dia_kernel.dia_mv(dataT, neg_dev, x)  # noqa: E731
+        rel_k1 = ((run_k1() - y).abs().max() / y.abs().max()).item()
         check(rel_k1 <= tol, f"K1 on dataT disagrees with K2 on {name} {tag} ({rel_k1:.2e})")
         At = mb.banded_csr(data, offs, ne, transpose=True)
         rel_lib = ((At @ x - y).abs().max() / y.abs().max()).item()
-        # K2 and K1 on dataT in turns (K2, K1, K1, K2), each its faster turn
-        t = [mb.cuda_ms(f, 50) for f in (
-            lambda: dia_kernel.dia_rmv(data, offs_dev, x, ne),
-            lambda: dia_kernel.dia_mv(dataT, neg_dev, x),
-        )]
-        t += [mb.cuda_ms(f, 50) for f in (
-            lambda: dia_kernel.dia_mv(dataT, neg_dev, x),
-            lambda: dia_kernel.dia_rmv(data, offs_dev, x, ne),
-        )]
-        ms, k1_ms = min(t[0], t[3]), min(t[1], t[2])
-        plain_ms = mb.cuda_ms(lambda: dia_kernel.dia_rmv_ref(data, offs, x, ne), 10)
-        lib_ms = mb.cuda_ms(lambda: At @ x, 50)
-        entries = mb.band_entries(offs, nrows, ne)
-        nbytes = (entries + nrows + ne) * data.element_size()
-        b_ms, b_by = mb.bound(nbytes, 2 * entries, dtype)
-        record["dia_rmv", name, tag] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                            bound_ms=b_ms, bound_by=b_by, k1_dataT_ms=k1_ms)
-        print(f"K2 {name} nd={nd} nrows={nrows} ne={ne} {tag}: err {rel:.2e} (tol {tol:g}), "
-              f"{ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, {100 * b_ms / ms:.1f}% of the "
-              f"{b_by} bound {b_ms:.4f} ms); K1 on dataT {k1_ms:.4f} ms "
-              f"(K2/K1 {ms / k1_ms:.2f}), plain {plain_ms:.4f} ms, "
-              f"cuSPARSE {lib_ms:.4f} ms (err {rel_lib:.1e})", flush=True)
+        rec = timing("dia_rmv", name, tag, run, lambda: At @ x,
+                     lambda: dia_kernel.dia_rmv_ref(data, offs, x, ne),
+                     mb.band_entries(offs, nrows, ne), nrows, ne, dtype, nd, nrows)
+        # K2 and K1 on dataT in turns (K2, K1, K1, K2), cold, each its faster turn
+        t = [mb.cold_ms(f, 30) for f in (run, run_k1, run_k1, run)]
+        rec["k2_turns_ms"], rec["k1_dataT_ms"] = min(t[0], t[3]), min(t[1], t[2])
+        ratio = rec["k2_turns_ms"] / rec["k1_dataT_ms"]
+        report(f"K2 {name} nd={nd} nrows={nrows} ne={ne} offsets {min(offs)}..{max(offs)} {tag} "
+               f"(tile {plan.tile}, warps {plan.warps}, cluster {plan.cluster})", rec, rel,
+               f"; cuSPARSE err {rel_lib:.1e}; in turns K2 {rec['k2_turns_ms']:.4f} and K1 on "
+               f"dataT {rec['k1_dataT_ms']:.4f} ms cold (K2/K1 {ratio:.2f})")
         del dataT, At
     torch.cuda.empty_cache()
 

@@ -1,4 +1,4 @@
-# Copy of porotpu/fem/dofmap.py, behaviour unchanged.
+# Copy of porotpu/fem/dofmap.py; _face_lookup also checks its lookup.
 """Dof numbering for P1/P2 Lagrange spaces and the field-major mixed space.
 
 Replaces DOLFIN dofmaps + lib/IndexSet.py of the reference.  A key TPU-first
@@ -189,7 +189,8 @@ class FunctionSpace:
         return np.unique(np.concatenate(nodes))
 
     def _face_lookup(self, triples: np.ndarray) -> np.ndarray:
-        """Map sorted vertex triples to face ids (requires degree 3, 3D)."""
+        """Map sorted vertex triples to face ids (requires degree 3, 3D).
+        Raises ValueError for a triple that is not a face."""
         faces = self.faces
         nvv = self.mesh.num_vertices + 1
         key_all = (
@@ -199,7 +200,15 @@ class FunctionSpace:
             triples[:, 0].astype(np.int64) * nvv + triples[:, 1]
         ) * nvv + triples[:, 2]
         order = np.argsort(key_all)
-        pos = np.searchsorted(key_all[order], key)
+        sorted_keys = key_all[order]
+        pos = np.searchsorted(sorted_keys, key)
+        hit = pos < sorted_keys.size
+        hit[hit] = sorted_keys[pos[hit]] == key[hit]
+        if not hit.all():
+            raise ValueError(
+                f"face lookup: {int((~hit).sum())} vertex triples are no face, "
+                f"e.g. {triples[~hit][0]}"
+            )
         return order[pos]
 
     def _edge_lookup(self, pairs: np.ndarray) -> np.ndarray:

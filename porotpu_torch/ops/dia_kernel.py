@@ -15,6 +15,11 @@ is no fallback between the two: a CUDA tensor whose kernel fails to build
 or launch raises.  K3's only caller, the microbench, runs on the card and
 launches ``dia_mv_padded`` directly.
 
+K1 and K2 share one frame (``csrc/dia_tile.cuh``): tiles of 256 (f32) or
+128 (f64) outputs, diagonals split over the warps of a block and, on
+operators with few tiles, over the blocks of a thread-block cluster.
+``launch_plan`` picks the warps and the cluster from the shapes alone.
+
 Every ``csrc/*.cu`` is compiled by ``nvcc`` at first use, one process per
 source, all started together, and linked into one library under
 ``build/porotpu_torch_ext/`` at the repository root (rebuilt when any
@@ -25,7 +30,10 @@ nor PyTorch's headers are needed.
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import dataclasses
+import functools
 import glob
 import os
 import shutil
@@ -38,6 +46,7 @@ import torch.nn.functional as F
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cu")))
+HEADERS = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cuh")))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "porotpu_torch_ext")
 LIBRARY = os.path.join(BUILD_DIR, "libporotpu_torch_ext.so")
 NVCC_FLAGS = [
@@ -47,7 +56,7 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
-# the offsets are staged in the default 48 KB of dynamic shared memory
+# K3 stages its offsets in the default 48 KB of dynamic shared memory
 MAX_DIAGONALS = 48 * 1024 // 4
 
 # Dispatch counts, read by chip_smoke.py: "dia_mv", "dia_rmv" and
@@ -55,6 +64,8 @@ MAX_DIAGONALS = 48 * 1024 // 4
 # where it launches), "plain" counts products taken by a plain PyTorch
 # version through the dispatch functions.
 COUNTS = {"dia_mv": 0, "dia_rmv": 0, "dia_mv_padded": 0, "plain": 0}
+# The same launches by operator: (kernel, dtype, nd, nrows) -> launches.
+LAUNCHES = collections.Counter()
 
 _lib = None
 
@@ -62,6 +73,7 @@ _lib = None
 def reset_counts():
     for k in COUNTS:
         COUNTS[k] = 0
+    LAUNCHES.clear()
 
 
 def _nvcc() -> str:
@@ -104,7 +116,7 @@ def build() -> tuple[float, str]:
     current.  Raises RuntimeError with nvcc's output when the build fails.
     """
     if os.path.exists(LIBRARY) and os.path.getmtime(LIBRARY) >= max(
-        os.path.getmtime(s) for s in SOURCES
+        os.path.getmtime(s) for s in SOURCES + HEADERS
     ):
         return 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -130,7 +142,8 @@ def _load():
         return _lib
     build()
     lib = ctypes.CDLL(LIBRARY)
-    # data, offsets (int32, device), nd, nrows, input, ne or lo, y, stream
+    # data, offsets (int32, device), nd, nrows, input, ne or lo, y, stream;
+    # K1 and K2 then take the plan: vec, warps, cluster, stages, tile
     argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -138,10 +151,11 @@ def _load():
     for fn in (
         lib.porotpu_dia_mv_f32, lib.porotpu_dia_mv_f64,
         lib.porotpu_dia_rmv_f32, lib.porotpu_dia_rmv_f64,
-        lib.porotpu_dia_mv_padded_f32,
     ):
-        fn.argtypes = argtypes
+        fn.argtypes = argtypes + [ctypes.c_int] * 5
         fn.restype = ctypes.c_int
+    lib.porotpu_dia_mv_padded_f32.argtypes = argtypes
+    lib.porotpu_dia_mv_padded_f32.restype = ctypes.c_int
     lib.porotpu_cuda_error_string.argtypes = [ctypes.c_int]
     lib.porotpu_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -164,8 +178,6 @@ def _check(name, data, offsets, x, dtypes):
     nd, nrows = data.shape
     if offsets.shape[0] != nd:
         raise ValueError(f"{name}: {offsets.shape[0]} offsets for {nd} diagonals")
-    if nd > MAX_DIAGONALS:
-        raise ValueError(f"{name}: {nd} diagonals exceed the {MAX_DIAGONALS} staged")
     if not (data.is_contiguous() and offsets.is_contiguous() and x.is_contiguous()):
         raise ValueError(f"{name}: data, offsets and the input must be contiguous")
     if max(data.numel(), x.numel()) >= 2**31:
@@ -173,12 +185,12 @@ def _check(name, data, offsets, x, dtypes):
     return nd, nrows
 
 
-def _launch(name, fn, data, offsets, nd, nrows, x, n, y):
+def _launch(name, fn, data, offsets, nd, nrows, x, n, y, *plan_args):
     """One launch on the current stream; raises on the launch's CUDA error."""
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
         err = fn(data.data_ptr(), offsets.data_ptr(), nd, nrows, x.data_ptr(), n,
-                 y.data_ptr(), stream)
+                 y.data_ptr(), stream, *plan_args)
     if err != 0:
         raise RuntimeError(
             "{} launch failed: CUDA error {} ({})".format(
@@ -186,7 +198,88 @@ def _launch(name, fn, data, offsets, nd, nrows, x, n, y):
             )
         )
     COUNTS[name] += 1
+    LAUNCHES[name, str(data.dtype).removeprefix("torch."), nd, nrows] += 1
     return y
+
+
+# -- the launch plan of K1 and K2 ---------------------------------------------
+
+SM_COUNT = 132  # NVIDIA H100 SXM
+# Fixed by the kernels (csrc/dia_tile.cuh: kChunks, kStages), checked at
+# each launch: 16-byte chunks a lane holds per diagonal, cp.async ring
+# stages a warp.
+CHUNKS = 2
+STAGES = 2
+WARPS = {torch.float32: 8, torch.float64: 4}  # warps of a block, one diagonal group each
+MIN_WARPS_PER_SM = 12  # split over a cluster below this many warps an SM
+MIN_DIAGONALS_PER_WARP = 4
+SHARED_MEMORY_PER_BLOCK = 48 * 1024  # without a cudaFuncSetAttribute call
+
+
+def smem_bytes(warps: int, tile: int, itemsize: int) -> int:
+    """Dynamic shared memory of a K1/K2 block (csrc/dia_tile.cuh:
+    smem_bytes): each warp's ring of STAGES stages of 2 * CHUNKS * 32 + 2
+    16-byte chunks, then warps + 1 partial tiles."""
+    return warps * STAGES * (2 * CHUNKS * 32 + 2) * 16 + (warps + 1) * tile * itemsize
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    tile: int  # outputs a block owns: 32 lanes x CHUNKS x 16 bytes
+    warps: int  # warps of a block, one diagonal group each
+    cluster: int  # blocks on one tile: a thread-block cluster when > 1
+    stages: int  # cp.async ring stages a warp
+    blocks: int  # blocks of the grid
+    vec: bool  # both lengths are whole 16-byte chunks
+    smem_bytes: int  # dynamic shared memory of a block: rings, partial tiles
+
+    @property
+    def groups(self) -> int:
+        return self.warps * self.cluster
+
+    def group_ranges(self, nd: int) -> list[tuple[int, int]]:
+        """The diagonals [lo, hi) of each group, split as the kernels split
+        them (csrc/dia_tile.cuh: tile_and_group)."""
+        g = self.groups
+        return [(k * nd // g, (k + 1) * nd // g) for k in range(g)]
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(nd: int, n_out: int, n_in: int, dtype: torch.dtype) -> LaunchPlan:
+    """The launch of K1 (n_out = nrows, n_in = ne) or K2 (n_out = ne, n_in =
+    nrows) over ``nd`` diagonals: one block of ``WARPS`` warps a tile of
+    256 (f32) or 128 (f64) outputs, and the tile's diagonals split over a
+    cluster of 2, 4 or 8 blocks while the grid has fewer than
+    ``MIN_WARPS_PER_SM`` warps an SM and every warp keeps at least
+    ``MIN_DIAGONALS_PER_WARP`` diagonals.  The 59136-row operators of the
+    N=13 solve give 14 warps an SM unsplit, and time best so; the
+    4480-row level-1 A takes a cluster of 8 (tools/dia_plan_sweep.py).
+    Cached: the wrappers ask for it at every launch."""
+    itemsize = dtype.itemsize
+    per_chunk = 16 // itemsize
+    tile = 32 * CHUNKS * per_chunk
+    warps = WARPS[dtype]
+    tiles = max(1, -(-n_out // tile))
+    cluster = 1
+    while (cluster < 8 and tiles * cluster * warps < MIN_WARPS_PER_SM * SM_COUNT
+           and nd >= 2 * cluster * warps * MIN_DIAGONALS_PER_WARP):
+        cluster *= 2
+    return LaunchPlan(
+        tile=tile, warps=warps, cluster=cluster, stages=STAGES, blocks=tiles * cluster,
+        vec=n_out % per_chunk == 0 and n_in % per_chunk == 0,
+        smem_bytes=smem_bytes(warps, tile, itemsize),
+    )
+
+
+def _launch_planned(name, fn, data, offsets, x, ne, y, plan):
+    """Launch K1 or K2 by ``plan``: 16-byte chunks when the plan allows
+    them and x is 16-byte aligned (data must be)."""
+    if data.data_ptr() % 16:
+        raise ValueError(f"{name}: data must be 16-byte aligned")
+    nd, nrows = data.shape
+    vec = plan.vec and x.data_ptr() % 16 == 0
+    return _launch(name, fn, data, offsets, nd, nrows, x, ne, y,
+                   int(vec), plan.warps, plan.cluster, plan.stages, plan.tile)
 
 
 # -- K1 ----------------------------------------------------------------------
@@ -195,8 +288,9 @@ def _launch(name, fn, data, offsets, nd, nrows, x, n, y):
 def dia_mv(data: torch.Tensor, offsets: torch.Tensor, xe: torch.Tensor) -> torch.Tensor:
     """Launch K1: y (nrows,) with nrows = data.shape[1].
 
-    data: (nd, nrows) float32/float64 CUDA tensor; offsets: (nd,) int32 on
-    the same device; xe: (ne,) of data's dtype, any ne >= 0.
+    data: (nd, nrows) float32/float64 CUDA tensor, 16-byte aligned;
+    offsets: (nd,) int32 on the same device; xe: (ne,) of data's dtype, any
+    ne >= 0.
     """
     nd, nrows = _check("dia_mv", data, offsets, xe, (torch.float32, torch.float64))
     y = torch.empty(nrows, dtype=data.dtype, device=data.device)
@@ -206,7 +300,9 @@ def dia_mv(data: torch.Tensor, offsets: torch.Tensor, xe: torch.Tensor) -> torch
         return y.zero_()
     lib = _load()
     fn = lib.porotpu_dia_mv_f32 if data.dtype == torch.float32 else lib.porotpu_dia_mv_f64
-    return _launch("dia_mv", fn, data, offsets, nd, nrows, xe, xe.shape[0], y)
+    ne = xe.shape[0]
+    return _launch_planned("dia_mv", fn, data, offsets, xe, ne, y,
+                           launch_plan(nd, nrows, ne, data.dtype))
 
 
 def dia_mv_ref(data: torch.Tensor, offsets, xe: torch.Tensor, nrows: int) -> torch.Tensor:
@@ -242,8 +338,9 @@ def mv(data, offsets, offsets_dev, xe, nrows):
 def dia_rmv(data: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor, ne: int) -> torch.Tensor:
     """Launch K2: y (ne,) over the embedded column space.
 
-    data: (nd, nrows) float32/float64 CUDA tensor; offsets: (nd,) int32 on
-    the same device; x: (nrows,) of data's dtype; ne >= 0.
+    data: (nd, nrows) float32/float64 CUDA tensor, 16-byte aligned;
+    offsets: (nd,) int32 on the same device; x: (nrows,) of data's dtype;
+    ne >= 0.
     """
     nd, nrows = _check("dia_rmv", data, offsets, x, (torch.float32, torch.float64))
     if x.shape[0] != nrows:
@@ -257,7 +354,8 @@ def dia_rmv(data: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor, ne: int)
         return y.zero_()
     lib = _load()
     fn = lib.porotpu_dia_rmv_f32 if data.dtype == torch.float32 else lib.porotpu_dia_rmv_f64
-    return _launch("dia_rmv", fn, data, offsets, nd, nrows, x, ne, y)
+    return _launch_planned("dia_rmv", fn, data, offsets, x, ne, y,
+                           launch_plan(nd, ne, nrows, data.dtype))
 
 
 def dia_rmv_ref(data: torch.Tensor, offsets, x: torch.Tensor, ne: int) -> torch.Tensor:
@@ -301,6 +399,8 @@ def dia_mv_padded(data: torch.Tensor, offsets, offsets_dev: torch.Tensor,
     card; xpad: (lo + nrows + hi,) float32 with (lo, hi) = ``pads(offsets)``.
     """
     nd, nrows = _check("dia_mv_padded", data, offsets_dev, xpad, (torch.float32,))
+    if nd > MAX_DIAGONALS:
+        raise ValueError(f"dia_mv_padded: {nd} diagonals exceed the {MAX_DIAGONALS} staged")
     if len(offsets) != nd:
         raise ValueError(f"dia_mv_padded: {len(offsets)} host offsets for {nd} diagonals")
     lo, hi = pads(offsets) if nd else (0, 0)

@@ -40,6 +40,8 @@ PEAK_FLOP_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
 # timed calls per launch measurement, and steps per chained measurement
 REPS = 50
 STEPS = 20
+# bytes read between two cold launches: twice the H100's 50 MB L2
+FLUSH_BYTES = 100 * 2**20
 
 
 def bound(nbytes, flops, dtype):
@@ -83,11 +85,18 @@ def banded_csr(data, offsets, ncols, transpose=False):
         return torch.sparse_csr_tensor(crow, cols, vals, shape, check_invariants=False)
 
 
+# device cycles the stream sleeps before a timed loop, so that the host has
+# queued every call before the first runs (about 10 ms on an H100): the
+# events then time the device alone, not the host's launch overhead
+SLEEP_CYCLES = 20_000_000
+
+
 def cuda_ms(fn, reps):
-    """Mean milliseconds per call of fn over ``reps`` calls, CUDA events,
-    after one warm-up call."""
+    """Mean milliseconds per call of fn over ``reps`` calls back to back,
+    CUDA events, after one warm-up call."""
     fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -96,6 +105,26 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cold_ms(fn, reps):
+    """Mean milliseconds per call of fn with the L2 cache flushed before
+    each call, CUDA events around the call alone, after one warm-up call.
+    The flush reads FLUSH_BYTES: a write would leave the L2 full of dirty
+    lines, whose write-back the timed call would pay."""
+    flush = torch.ones(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for start, end in events:
+        flush.sum()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / reps
 
 
 def _pattern(n, seed=0):

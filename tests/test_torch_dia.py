@@ -28,8 +28,8 @@ from porotpu_torch.ops.dia import DIA, Dense, Transposed, device_matrix
 from porotpu_torch.ops.sparse import ELL, FieldMatrix
 from porotpu_torch.tools.dia_microbench import banded_csr
 from torch_k1_cases import (
-    CSR_CASES, K1_CASES, K2_CPU_CASES, banded_random, csr_case, offset_case, rmv_case,
-    small_build,
+    CSR_CASES, EDGE_CASES, K1_CASES, K2_CPU_CASES, banded_random, csr_case, offset_case,
+    rmv_case, small_build,
 )
 
 torch.set_num_threads(1)
@@ -240,3 +240,37 @@ def test_cpu_dispatch_counts_plain_sweeps():
         D.matvec(torch.ones(64, dtype=dtype))
         D.rmatvec(torch.ones(64, dtype=dtype))
         assert dia_kernel.COUNTS == {"dia_mv": 0, "dia_rmv": 0, "dia_mv_padded": 0, "plain": 2}
+
+
+# (nd, rows) of every banded operator the N=13 bench solve launches K1 or K2
+# on (chip_smoke.py's launches by operator; PERF.md), square in the lattice
+N13_OPERATORS = [
+    (233, 59136), (195, 59136), (454, 59136), (402, 59136), (681, 4480), (617, 4480),
+    (65, 59136), (65, 2816), (123, 2816), (1, 59136), (15, 2816), (1, 2816),
+]
+PLAN_SHAPES = [(nd, n, n) for nd, n in N13_OPERATORS] + [
+    shape for nd, nrows, ne, _ in EDGE_CASES.values()
+    for shape in ((nd, nrows, ne), (nd, ne, nrows))  # K1 (n_out, n_in), K2
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_launch_plan_covers_every_diagonal_once(dtype):
+    """On every N=13 operator shape and every edge shape: the groups split
+    the diagonals (each in exactly one group), the cluster is at most 8 and
+    divides the tile, the block's shared memory fits without an attribute
+    call (and so the H100's 227 KB), and the grid has a block.  The heavy
+    N=13 operators fill the card: at least MIN_WARPS_PER_SM warps an SM, or
+    the largest cluster."""
+    for nd, n_out, n_in in PLAN_SHAPES:
+        plan = dia_kernel.launch_plan(nd, n_out, n_in, dtype)
+        covered = [d for lo, hi in plan.group_ranges(nd) for d in range(lo, hi)]
+        assert covered == list(range(nd)), (nd, n_out, plan)
+        assert plan.cluster in (1, 2, 4, 8) and plan.tile % plan.cluster == 0
+        assert plan.smem_bytes <= dia_kernel.SHARED_MEMORY_PER_BLOCK <= 227 * 1024
+        assert plan.blocks == -(-n_out // plan.tile) * plan.cluster >= 1
+        assert plan.tile == 32 * dia_kernel.CHUNKS * 16 // dtype.itemsize
+        assert plan.vec == (n_out % (16 // dtype.itemsize) == 0 == n_in % (16 // dtype.itemsize))
+        if nd * n_out >= 2_000_000:
+            warps_per_sm = plan.blocks * plan.warps / dia_kernel.SM_COUNT
+            assert warps_per_sm >= dia_kernel.MIN_WARPS_PER_SM or plan.cluster == 8, plan

@@ -18,10 +18,13 @@ import pytest
 import torch
 
 from porotpu.fem.bcs import bc_dofs_values as jbc_dofs_values
+from porotpu.fem.dofmap import FunctionSpace as JFunctionSpace
 from porotpu.fem.dofmap import vertex_embedding as jvertex_embedding
+from porotpu.fem.mesh import generate_cube as jgenerate_cube
 from porotpu.models import benchmarks as jbench
 from porotpu_torch.fem.bcs import bc_dofs_values
-from porotpu_torch.fem.dofmap import vertex_embedding
+from porotpu_torch.fem.dofmap import FunctionSpace, vertex_embedding
+from porotpu_torch.fem.mesh import generate_cube
 from porotpu_torch.models.benchmarks import BENCH_OVERRIDES, swelling_3d
 from porotpu_torch.models.poromechanics import Poromechanics
 
@@ -81,3 +84,20 @@ def test_entry_points_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         swelling_3d(2, overrides=F64)
+
+
+def test_face_lookup_checks_its_hits():
+    """P3 on the N=3 cube: the facet lookups and boundary nodes match
+    porotpu's, and a vertex triple that is no face raises (porotpu's copy
+    returns an arbitrary face id for it)."""
+    V = FunctionSpace(generate_cube(3, 1.0)[0], 3, vector=True)
+    J = JFunctionSpace(jgenerate_cube(3, 1.0)[0], 3, vector=True)
+    facets = np.sort(V.mesh.boundary_facets, axis=1)
+    np.testing.assert_array_equal(V._face_lookup(facets), J._face_lookup(facets))
+    np.testing.assert_array_equal(V.boundary_nodes(), J.boundary_nodes())
+    nv = V.mesh.num_vertices
+    inner = np.array([[0, nv // 2, nv - 1]])  # between two faces' keys
+    assert not (V.faces == inner).all(axis=1).any()
+    for triple in (inner, np.array([[nv, nv, nv]])):  # the second beyond every key
+        with pytest.raises(ValueError, match="no face"):
+            V._face_lookup(triple)

@@ -1,6 +1,8 @@
 """Kernels K1, K2 and K3 on the card: each CUDA kernel against its plain
 PyTorch version, f32 to 1e-5 and f64 to 1e-12 of max|y| (summation order
-only).
+only), on the N=3 and test_dia offset sets and on the launch plan's edge
+shapes; K1 and K2 also launch twice bitwise equal, take an unaligned
+input and refuse unaligned data.
 
 Every test here needs a CUDA card and skips without one.  This file
 imports no jax, so it runs where jax is absent:
@@ -14,7 +16,9 @@ import torch
 
 from porotpu_torch.ops import dia_kernel
 from porotpu_torch.ops.dia import DIA, Transposed
-from torch_k1_cases import K1_CASES, K2_CASES, csr_case, offset_case, rmv_case, small_build
+from torch_k1_cases import (
+    EDGE_CASES, K1_CASES, K2_CASES, csr_case, edge_case, offset_case, rmv_case, small_build,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -61,6 +65,65 @@ def test_k2_cuda_matches_plain(case, dtype, tol, build, cuda_device):
     ref = dia_kernel.dia_rmv_ref(data, offs, x, ne)
     err = ((y - ref).abs().max() / ref.abs().max()).item()
     assert err <= tol, err
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_k1_k2_edge_shapes_match_plain(case, dtype, tol, cuda_device):
+    """K1 and K2 at the launch plan's edge shapes, each launched twice: the
+    two results are bitwise equal and match the plain version."""
+    data, offs, x, xt, ne = edge_case(case)
+    data, x, xt = (torch.as_tensor(a, dtype=dtype, device=cuda_device) for a in (data, x, xt))
+    offs_dev = torch.tensor(offs, dtype=torch.int32, device=cuda_device)
+    nrows = data.shape[1]
+    for y1, y2, ref in (
+        (dia_kernel.dia_mv(data, offs_dev, x), dia_kernel.dia_mv(data, offs_dev, x),
+         dia_kernel.dia_mv_ref(data, offs, x, nrows)),
+        (dia_kernel.dia_rmv(data, offs_dev, xt, ne), dia_kernel.dia_rmv(data, offs_dev, xt, ne),
+         dia_kernel.dia_rmv_ref(data, offs, xt, ne)),
+    ):
+        torch.cuda.synchronize()
+        assert torch.equal(y1, y2)
+        assert y1.shape == ref.shape
+        scale = ref.abs().max().item()
+        assert (y1 - ref).abs().max().item() <= tol * scale
+
+
+@pytest.mark.parametrize("kernel", ["dia_mv", "dia_rmv"])
+def test_k1_k2_deterministic_and_unaligned_input(kernel, cuda_device):
+    """A cluster launch (600 diagonals on 8 tiles) twice gives bitwise equal
+    results, and an input that is not 16-byte aligned (read with masked
+    scalar loads) gives the same bits as an aligned copy."""
+    data, offs, x, xt, ne = edge_case("nd_over_groups")
+    data = torch.as_tensor(data, dtype=torch.float32, device=cuda_device)
+    offs_dev = torch.tensor(offs, dtype=torch.int32, device=cuda_device)
+    inp = torch.as_tensor(x if kernel == "dia_mv" else xt, dtype=torch.float32, device=cuda_device)
+    assert dia_kernel.launch_plan(len(offs), ne, data.shape[1], torch.float32).cluster == 8
+    shifted = torch.empty(inp.numel() + 1, dtype=inp.dtype, device=cuda_device)[1:]
+    shifted.copy_(inp)
+    assert shifted.data_ptr() % 16 != 0
+
+    def run(v):
+        if kernel == "dia_mv":
+            return dia_kernel.dia_mv(data, offs_dev, v)
+        return dia_kernel.dia_rmv(data, offs_dev, v, ne)
+
+    ys = [run(inp), run(inp), run(shifted)]
+    torch.cuda.synchronize()
+    assert torch.equal(ys[0], ys[1]) and torch.equal(ys[0], ys[2])
+
+
+def test_k1_k2_reject_unaligned_data(cuda_device):
+    nd, n = 3, 256
+    flat = torch.ones(nd * n + 1, device=cuda_device)
+    data = flat[1:].view(nd, n)
+    assert data.is_contiguous() and data.data_ptr() % 16 != 0
+    offs = torch.tensor([-1, 0, 1], dtype=torch.int32, device=cuda_device)
+    x = torch.ones(n, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        dia_kernel.dia_mv(data, offs, x)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        dia_kernel.dia_rmv(data, offs, x, n)
 
 
 def test_k3_cuda_matches_plain_and_k1(cuda_device):

@@ -15,6 +15,30 @@ K1_CASES = ["test_dia_set_1024", "test_dia_set_3072", "solid_block_233", "transp
 K2_CASES = ["rmv_set_1024", "rmv_set_2048", "prolongator_L0", "transposed_block_714"]
 K2_CPU_CASES = K2_CASES[:2]
 CSR_CASES = ["square", "col_emb", "rect_wide", "rect_no_emb"]
+# Edge shapes of the launch plan, (nd, nrows, ne, offsets) for K1 (ne the
+# input length) and K2 (ne the output length): one diagonal; more
+# diagonals than the plan's groups (a cluster of 8 on one tile); fewer
+# diagonals than warps; fewer rows than a tile; lengths that are not whole
+# 16-byte chunks; ne != nrows both ways; bands with no row inside.
+EDGE_CASES = {
+    "nd_1": (1, 640, 640, (3,)),
+    "nd_over_groups": (600, 1000, 1000, tuple(range(-300, 300))),
+    "nd_under_warps": (5, 4096, 4096, (-700, -1, 0, 2, 701)),
+    "nrows_under_tile": (9, 50, 50, tuple(range(-4, 5))),
+    "nrows_not_chunks": (7, 1001, 1001, (-37, -5, 0, 1, 3, 250, 999)),
+    "ne_lt_nrows": (6, 1152, 776, (-5, 0, 1, 2, 3, 400)),
+    "ne_gt_nrows": (6, 130, 1152, (-5, 0, 1, 2, 3, 900)),
+    "far_bands": (5, 300, 260, (-900, -301, 0, 35, 700)),
+}
+
+
+def edge_case(name):
+    """(data (nd, nrows), offsets, x (ne,), xt (nrows,), ne) in f64: the K1
+    input x and the K2 input xt of one edge shape."""
+    nd, nrows, ne, offs = EDGE_CASES[name]
+    assert len(offs) == nd
+    rng = np.random.default_rng(17)
+    return rng.normal(size=(nd, nrows)), offs, rng.normal(size=ne), rng.normal(size=nrows), ne
 
 
 def small_build():

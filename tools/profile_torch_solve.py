@@ -8,11 +8,13 @@ is named: then every transpose runs K2) on cuda:0,
 solves once to warm up, then profiles one solve with torch.profiler and
 prints: wall time, the summed device time of all kernels and its share
 of the wall time (the rest is the device waiting on the host), and the
-kernels and operators that take the most device time.  Needs a CUDA
-card.
+kernels and operators that take the most device time, the device time
+and launches of K1 and K2, and the solve's launches by operator (kernel,
+dtype, nd, nrows; ``dia_kernel.LAUNCHES``).  Needs a CUDA card.
 """
 
 import os
+import subprocess
 import sys
 import time
 
@@ -33,7 +35,10 @@ def main(dtype="float32"):
         print("needs a CUDA card", file=sys.stderr)
         return 2
     from porotpu_torch.models.benchmarks import BENCH_OVERRIDES, swelling_3d
+    from porotpu_torch.ops import dia_kernel
 
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     problem = swelling_3d(13, overrides=dict(BENCH_OVERRIDES, dtype=dtype), device=dev)
@@ -44,6 +49,7 @@ def main(dtype="float32"):
     problem._solve(b, x0)
     torch.cuda.synchronize()
 
+    dia_kernel.reset_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         res = problem._solve(b, x0)
@@ -60,6 +66,16 @@ def main(dtype="float32"):
           f"({100 * dev_us / 1e6 / wall:.1f}% of wall), {sum(e.count for e in kernels)} kernels")
     for e in sorted(kernels, key=lambda e: -_device_us(e))[:12]:
         print(f"  {_device_us(e) / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
+    for name in ("dia_mv_kernel", "dia_rmv_kernel"):
+        mine = [e for e in kernels if name in e.key]
+        us = sum(_device_us(e) for e in mine)
+        n = sum(e.count for e in mine)
+        print(f"{name}: {us / 1e3:.3f} ms of device time in {n} launches "
+              f"({100 * us / max(dev_us, 1e-9):.1f}% of device busy)")
+    print("launches by operator (kernel dtype nd nrows: launches):")
+    for (kernel, dt, nd, nrows), n in sorted(dia_kernel.LAUNCHES.items(),
+                                             key=lambda kv: -kv[1] * kv[0][2] * kv[0][3]):
+        print(f"  {kernel} {dt} {nd} {nrows}: {n}")
     print(events.table(sort_by="self_cpu_time_total", row_limit=12))
     return 0
 
