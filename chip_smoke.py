@@ -44,6 +44,30 @@
 7. K3's path, its entry point porotpu_torch/tools/dia_microbench.py (the
    counts reset around it): K3 against the numpy reference, its plain
    version and K1 to 1e-5, and its times beside K1's and cuSPARSE's.
+8. The reference drivers' path in f64, through the port's driver
+   functions (``porotpu_torch.drivers.*.setup`` with the command line a
+   user would give, then ``solve()`` and ``print_timings()``), each run
+   with the counts reset just before the solve and read just after:
+   swelling N=80 with petsc-options-inexact (110,245 dofs, porotpu's 16
+   iterations at t=0.1, output/SUMMARY.md), footing N=40 with
+   petsc-options-inexact and pc type undrained (126,691 dofs, 35
+   iterations), swelling N=20 with petsc-options-exact (dense-LU inner
+   solves and fp block, 8 iterations).  Each must give its count, pass
+   the true-residual field-wise guard at its own tolerances, launch K1
+   and take no plain version.  The swelling runs must launch K2; footing
+   must hold no banded transpose (its prolongators and coupling blocks
+   store ELL, as porotpu's) and launch no K2.  Printed: host setup, solve
+   time, peak memory, launches by operator and per iteration, the
+   launches that took the masked scalar path (pad multiple 1 leaves
+   lengths that are not whole 16-byte chunks), the ELL products and the
+   heaviest ELL product of each kind timed.  Then the heaviest K1 and K2
+   sets of each run (launches x diagonals x rows), on the path (vector or
+   masked scalar) the run took them, and its heaviest scalar-path sets
+   are held against the plain version at 1e-12 on random data at their
+   shapes and offsets and timed cold against their bound and cuSPARSE.
+9. The drivers' defaults (full-residual RHS, cg+amg inner solves):
+   swelling N=6 over three steps on the card and with ``--device cpu``
+   must take the same iterations at every step and agree to 1e-10.
 
 Any failed check raises and the script exits non-zero.  It also exits
 non-zero without a CUDA device, and fails if jax or any module of porotpu
@@ -53,10 +77,31 @@ was imported.  The last two stdout lines are the JSON kernel record and
 
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# phase 8: label, driver, command line, dofs, porotpu's f64 iterations at
+# t=0.1 (output/SUMMARY.md; dofs from output/robustness-2d-*.out) and
+# whether the run holds banded transposes (then K2 must launch; else none
+# may exist and K2 must not launch)
+DRIVER_RUNS = (
+    ("swelling_inexact", "swelling",
+     ["-N", "80", "--petsc-options", "petsc-options-inexact"], 110245, [16], True),
+    ("footing_inexact", "footing",
+     ["-N", "40", "--petsc-options", "petsc-options-inexact", "--pc-type", "undrained"],
+     126691, [35], False),
+    ("swelling_exact", "swelling",
+     ["-N", "20", "--petsc-options", "petsc-options-exact"], 7165, [8], True),
+)
+# phase 8 holds, from each run, this many of its heaviest K1 sets, K2 sets
+# and scalar-path sets against the plain version
+HELD_SETS = 4
+# phase 9: the drivers' defaults over three steps
+DEFAULTS_RUN = ["-N", "6", "--time-final", "0.3"]
 
 
 def check(cond, msg):
@@ -170,6 +215,204 @@ def path_run(problem, dev, torch, dia_kernel, FieldwiseTest):
     if iterations != [9]:
         print(f"NOTE: {iterations[0]} iterations, the porotpu oracle (BENCH_r05) took 9")
     return counts, launches
+
+
+def _argv(argv):
+    """A command line with the options file as a path into the checkout."""
+    return [os.path.join(ROOT, a) if a.startswith("petsc-options") else a for a in argv]
+
+
+def operators(problem):
+    """One walk over a problem's device operators (A_dev, the PC, H_dev):
+    type name -> modules, for DIA, ELL, Transposed and AMGLevel."""
+    ops = {"DIA": [], "ELL": [], "Transposed": [], "AMGLevel": []}
+    for root in (problem.A_dev, problem.pc, problem.H_dev):
+        for m in root.modules() if root is not None else ():
+            ops.get(type(m).__name__, []).append(m)
+    return ops
+
+
+def banded_transposes(ops):
+    """The banded operators whose transpose product a solve takes: the DIA
+    inside a Transposed block, and a DIA prolongator (restriction P^T r).
+    In f64 no dataT is stored, so each of these runs K2."""
+    cands = [m.inner for m in ops["Transposed"]] + [m.P for m in ops["AMGLevel"]]
+    return [m for m in cands if type(m).__name__ == "DIA"]
+
+
+def time_heaviest_ell(ops, ell, dev, torch, mb):
+    """Cold and warm time of the ELL product of each kind (gather matvec,
+    index_add rmatvec) that took the most of a solve's ELL work (products
+    x rows x width), beside the bytes it must move."""
+    ells = {(str(m.data.dtype).removeprefix("torch."), *m.data.shape): m for m in ops["ELL"]}
+    for product in ("matvec", "rmatvec"):
+        keys = [k for k in ell if k[0] == product and k[1:] in ells]
+        if not keys:
+            continue
+        key = max(keys, key=lambda k: ell[k] * k[2] * k[3])
+        op = ells[key[1:]]
+        n, width = op.data.shape
+        n_in, n_out = (op.ncols, n) if product == "matvec" else (n, op.ncols)
+        x = torch.randn(n_in, dtype=op.data.dtype, device=dev)
+        nbytes = (n * width * (op.data.element_size() + op.cols.element_size())
+                  + (n_in + n_out) * op.data.element_size())
+        b_ms, b_by = mb.bound(nbytes, 2 * n * width, op.data.dtype)
+        run = getattr(op, product)
+        ms, warm = mb.cold_ms(lambda: run(x), 30), mb.cuda_ms(lambda: run(x), 50)
+        print(f"heaviest ELL {product} ({n} rows x {width}, {ell[key]} products in the solve): "
+              f"cold {ms:.4f} ms ({100 * b_ms / ms:.1f}% of the {b_by} bound {b_ms:.4f} ms), "
+              f"warm {warm:.4f} ms; x (cold - bound) over the solve "
+              f"{ell[key] * (ms - b_ms):.1f} ms", flush=True)
+
+
+def driver_run(label, drv, argv, dofs, oracle, k2, dev, torch, dia_kernel, ell_products,
+               FieldwiseTest, mb):
+    """One driver run on the card: ``setup(argv)``, then ``solve()`` with the
+    counts reset just before and read just after, then ``print_timings()``.
+    Checks the dofs, the true-residual guard at the problem's own
+    tolerances, K1 > 0, no plain product, and K2 as the run expects
+    (``k2``: launched, or no banded transpose and no launch).  Returns the
+    run's numbers and the sets to hold against the plain version: a list
+    of ((kernel, dtype, nd, nrows), offsets, ne, vector path, launches).
+    The iteration count is returned, not checked, so that every run
+    reports before a count against porotpu's fails the script."""
+    import numpy as np
+
+    print(f"-- {label}: python -m {drv.__name__} {' '.join(argv)}", flush=True)
+    t0 = time.perf_counter()
+    problem = drv.setup(_argv(argv))
+    t_problem = time.perf_counter() - t0
+    check(problem.device.type == "cuda" and problem.dtype == torch.float64,
+          f"{label}: runs on {problem.device} in {problem.dtype}, not on the card in f64")
+    n = problem.W.num_dofs
+    check(n == dofs, f"{label}: {n} dofs, porotpu's run had {dofs}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    dia_kernel.reset_counts()
+    ell_products.clear()
+    iterations = problem.solve()
+    counts = dict(dia_kernel.COUNTS)
+    launches = dict(dia_kernel.LAUNCHES)
+    scalar = dict(dia_kernel.SCALAR_LAUNCHES)
+    ell = dict(ell_products)
+    peak = torch.cuda.max_memory_allocated(dev)
+    res = problem.last_result
+    hist = [float(h) for h in res.history[: res.iters + 1]]
+    its = sum(iterations)
+    k12 = counts["dia_mv"] + counts["dia_rmv"]
+    n_scalar = sum(scalar.values())
+    print(f"dofs={n} padded sizes={problem.padded_sizes}; problem built in {t_problem:.2f} s, "
+          f"host setup {problem.t_setup:.2f} s, solve {problem.t_solve_total:.4f} s; "
+          f"peak device memory {peak / 2**20:.1f} MiB")
+    print(f"iterations={iterations} (porotpu {oracle}) converged={res.converged} "
+          f"residual={res.res:.4e}")
+    print("residual history:", " ".join(f"{h:.4e}" for h in hist))
+    print("dispatch counts in the solve: " + ", ".join(f"{k}={v}" for k, v in counts.items())
+          + f"; K1+K2 launches an iteration {k12 / max(its, 1):.1f}")
+    print(f"scalar-path launches: {n_scalar} of {k12} ({100 * n_scalar / max(k12, 1):.1f}%); "
+          f"ELL products: {sum(ell.values())}")
+    print("launches by operator (kernel dtype nd nrows: launches, of them scalar path):")
+    for key, k in sorted(launches.items(), key=lambda kv: -kv[1] * kv[0][2] * kv[0][3]):
+        print(f"  {' '.join(map(str, key))}: {k}, {scalar.get(key, 0)}")
+    for key, k in sorted(ell.items()):
+        print(f"  ELL {' '.join(map(str, key))}: {k}")
+    sys.stdout.flush()
+    problem.print_timings()
+    sys.stdout.flush()
+
+    b = problem.last_rhs
+    atol = float(problem.parameters["solver atol"])
+    rtol = float(problem.parameters["solver rtol"])
+    with torch.inference_mode():
+        fw = FieldwiseTest.from_sizes(problem.padded_sizes, b)
+        ea, er = (float(v) for v in fw.errors(b - problem.A_dev.matvec(problem.sol)))
+    print(f"true residual fieldwise: abs={ea:.3e} rel={er:.3e} (atol {atol:g}, rtol {rtol:g})",
+          flush=True)
+    check(res.converged, f"{label}: the solve did not converge")
+    check(ea < atol or er < rtol, f"{label}: true-residual guard failed")
+    check(np.isfinite(problem.sol.cpu().numpy()).all(), f"{label}: non-finite solution")
+    check(counts["dia_mv"] > 0, f"{label}: K1 was never launched")
+    check(counts["plain"] == 0, f"{label}: {counts['plain']} banded products took a plain version")
+    ops = operators(problem)
+    transposes = banded_transposes(ops)
+    print(f"banded operators applied transposed (K2's): {len(transposes)}; "
+          f"DIA {len(ops['DIA'])}, ELL {len(ops['ELL'])}, Transposed {len(ops['Transposed'])}")
+    if k2:
+        check(counts["dia_rmv"] > 0, f"{label}: K2 was never launched")
+    else:
+        check(not transposes, f"{label}: {len(transposes)} banded transposes, none expected")
+        check(counts["dia_rmv"] == 0, f"{label}: K2 launched with no banded transpose")
+    time_heaviest_ell(ops, ell, dev, torch, mb)
+
+    # the sets to hold: the heaviest of each kernel over all launches, and
+    # the heaviest scalar-path sets, each on the path the run took it
+    dias = {tuple(m.data.shape): (m.offsets, m.ne) for m in ops["DIA"]}
+    missing = sorted(k for k in launches if k[2:] not in dias)
+    if missing:
+        print(f"NOTE: {len(missing)} launched sets have no operator of their shape here: "
+              f"{missing[:4]}")
+    weight = lambda counter: lambda k: -counter[k] * k[2] * k[3]  # noqa: E731
+    found = [k for k in launches if k[2:] in dias]
+    chosen = []
+    for kernel in ("dia_mv", "dia_rmv"):
+        chosen += sorted((k for k in found if k[0] == kernel), key=weight(launches))[:HELD_SETS]
+    chosen += sorted((k for k in found if k in scalar), key=weight(scalar))[:HELD_SETS]
+    held = []
+    for key in dict.fromkeys(chosen):
+        n_vec = launches[key] - scalar.get(key, 0)
+        held += [(key, *dias[key[2:]], vec, n_path)
+                 for vec, n_path in ((True, n_vec), (False, scalar.get(key, 0))) if n_path]
+    share = sum(launches[k] for k in dict.fromkeys(chosen)) / max(k12, 1)
+    print(f"sets held against the plain version: {len(held)}, "
+          f"{100 * share:.1f}% of the run's K1+K2 launches", flush=True)
+    out = dict(iterations=iterations, launches=launches, scalar=scalar, counts=counts, held=held,
+               solve_s=problem.t_solve_total, setup_s=problem.t_setup, peak_mib=peak / 2**20)
+    out["problem"] = problem
+    return out
+
+
+def hold_set(key, offs, ne, vec, dev, torch, dia_kernel, mb, rng):
+    """Hold a driver run's set (kernel, dtype, nd, nrows; its offsets and
+    ne) against its plain version on random data at its shape, on the path
+    the run took it: the vector path on an aligned input, the masked scalar
+    path on an input misaligned by one value where the set's lengths are
+    whole chunks.  Checks that the launch took that path, then times it
+    cold and warm beside its bound and cuSPARSE."""
+    kernel, dt, nd, nrows = key
+    dtype = getattr(torch, dt)
+    n_in, n_out = (ne, nrows) if kernel == "dia_mv" else (nrows, ne)
+    plan = dia_kernel.launch_plan(nd, n_out, n_in, dtype)
+    check(plan.vec or not vec, f"{key}: the vector path was launched, the plan has none")
+    data = torch.as_tensor(rng.normal(size=(nd, nrows)), dtype=dtype, device=dev)
+    buf = torch.as_tensor(rng.normal(size=n_in + 1), dtype=dtype, device=dev)
+    x = buf[1:] if plan.vec and not vec else buf[:n_in]
+    offs_dev = torch.tensor(offs, dtype=torch.int32, device=dev)
+    if kernel == "dia_mv":
+        run = lambda: dia_kernel.dia_mv(data, offs_dev, x)  # noqa: E731
+        ref = dia_kernel.dia_mv_ref(data, offs, x, nrows)
+        A = mb.banded_csr(data, offs, ne)
+    else:
+        run = lambda: dia_kernel.dia_rmv(data, offs_dev, x, ne)  # noqa: E731
+        ref = dia_kernel.dia_rmv_ref(data, offs, x, ne)
+        A = mb.banded_csr(data, offs, ne, transpose=True)
+    n_scalar = dia_kernel.SCALAR_LAUNCHES[key]
+    y = run()
+    check((dia_kernel.SCALAR_LAUNCHES[key] == n_scalar) == vec,
+          f"{key}: the launch did not take the {'vector' if vec else 'scalar'} path")
+    rel = ((y - ref).abs().max() / ref.abs().max()).item()
+    path = "vector path" if vec else (
+        "scalar path, misaligned input" if plan.vec else "scalar path, lengths not whole chunks")
+    check(rel <= 1e-12, f"{key} disagrees with its plain version on the {path} ({rel:.2e})")
+    xc = x.contiguous()
+    entries = mb.band_entries(offs, nrows, ne)
+    b_ms, b_by = mb.bound((entries + n_in + n_out) * dtype.itemsize, 2 * entries, dtype)
+    ms, warm = mb.cold_ms(run, 30), mb.cuda_ms(run, 50)
+    lib, lib_warm = mb.cold_ms(lambda: A @ xc, 30), mb.cuda_ms(lambda: A @ xc, 50)
+    print(f"  {kernel} {dt} nd={nd} nrows={nrows} ne={ne} ({path}, cluster {plan.cluster}): "
+          f"err {rel:.2e}; cold {ms:.4f} ms ({100 * b_ms / ms:.1f}% of the {b_by} bound "
+          f"{b_ms:.4f} ms), warm {warm:.4f} ms; cuSPARSE cold {lib:.4f} warm {lib_warm:.4f} ms",
+          flush=True)
+    return ms
 
 
 def main():
@@ -377,6 +620,51 @@ def main():
     launches_k3 = dia_kernel.COUNTS["dia_mv_padded"]
     mb.report(mbrec)
     check(launches_k3 > 0, "K3 was never launched by the microbench")
+
+    # -- 8. the reference drivers' path, f64 --------------------------------
+    from porotpu_torch.drivers import footing, swelling
+    from porotpu_torch.ops.sparse import ELL_PRODUCTS
+
+    drivers_by_name = {"swelling": swelling, "footing": footing}
+    held, mismatches = [], []
+    for label, drv, argv, dofs, oracle, k2 in DRIVER_RUNS:
+        out = driver_run(label, drivers_by_name[drv], argv, dofs, oracle, k2, dev, torch,
+                         dia_kernel, ELL_PRODUCTS, FieldwiseTest, mb)
+        if label == "swelling_exact":
+            pc = out["problem"].pc
+            check(pc.solve_s.kind == "lu" and pc.solve_fp.kind == "lu",
+                  "petsc-options-exact did not build dense-LU solid and fp solves")
+        held += [(label, *h) for h in out["held"]]
+        if out["iterations"] != oracle:
+            mismatches.append(f"{label}: {out['iterations']} iterations, porotpu took {oracle}")
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("-- the driver runs' heaviest sets against their plain versions "
+          "(random data at their shapes and offsets)")
+    for label, key, offs, ne, vec, n_path in held:
+        print(f" {label}, {n_path} launches of this set on this path in the solve:")
+        hold_set(key, offs, ne, vec, dev, torch, dia_kernel, mb, rng)
+
+    # -- 9. the drivers' defaults: card against CPU ---------------------------
+    dflt = {}
+    for where in ("cuda", "cpu"):
+        p = swelling.setup(DEFAULTS_RUN + ["--device", where])
+        dia_kernel.reset_counts()
+        its = p.solve()
+        dflt[where] = (its, p.sol.cpu().numpy(), dict(dia_kernel.COUNTS))
+        del p
+    err = np.abs(dflt["cuda"][1] - dflt["cpu"][1]).max() / np.abs(dflt["cpu"][1]).max()
+    print(f"swelling {' '.join(DEFAULTS_RUN)} (full-residual, cg+amg) card vs CPU: iterations "
+          f"{dflt['cuda'][0]} vs {dflt['cpu'][0]}, max rel diff of x {err:.2e}; "
+          f"card counts {dflt['cuda'][2]}", flush=True)
+    check(dflt["cuda"][2]["dia_mv"] > 0 and dflt["cuda"][2]["dia_rmv"] > 0,
+          "K1 or K2 did not run in the full-residual card run")
+    check(dflt["cuda"][2]["plain"] == 0, "the full-residual card run took a plain version")
+    check(len(dflt["cuda"][0]) == 3 and dflt["cuda"][0] == dflt["cpu"][0],
+          "full-residual iteration counts differ between card and CPU")
+    check(err <= 1e-10, "full-residual solutions differ between card and CPU")
+    check(not mismatches, "; ".join(mismatches))
     check_imports()
 
     k1, k2, k3 = record["dia_mv", "L0_A", "f32"], record["dia_rmv", "L0_P", "f64"], mbrec["k3"]

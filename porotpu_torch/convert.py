@@ -69,14 +69,15 @@ def to_torch(obj, _memo=None):
             k: (conv(v) if type(v).__module__.startswith("porotpu.") else _tensor(v))
             for k, v in obj.payload.items()
         }
-        out = InnerSolver(obj.kind, payload, iters=obj.iters)
+        out = InnerSolver(obj.kind, payload, iters=obj.iters, lmax=obj.lmax,
+                          cheb_frac=obj.cheb_frac)
     elif name == "SchurFieldsplit":
         out = SchurFieldsplit(
             obj.nf, conv(obj.solve_f), conv(obj.solve_S), conv(obj.Apf)
         )
     elif name == "BlockPreconditioner":
         if obj.three_way:
-            raise NotImplementedError("the 3-way block PC is not ported yet (ROADMAP M7)")
+            raise NotImplementedError("the 3-way block PC is not ported yet (ROADMAP M7.1)")
         out = BlockPreconditioner(
             obj.ns, obj.nf, obj.np_, conv(obj.solve_s), conv(obj.solve_fp),
             conv(obj.Pfs), conv(obj.Pps),

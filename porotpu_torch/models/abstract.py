@@ -38,7 +38,7 @@ class AbstractPhysics:
         self.output_solutions = self.parameters.get("output solutions", False)
         self.output_name = self.parameters["output name"]
         if self.output_solutions:
-            raise NotImplementedError("solution export is not ported yet (ROADMAP M7)")
+            raise NotImplementedError("solution export is not ported yet (ROADMAP M7.5)")
 
     def solve_time_step(self, t) -> int:  # pragma: no cover - interface
         raise NotImplementedError

@@ -8,20 +8,23 @@ the host and moved to ``device`` in one ``.to``.  Each time step is one
 right-preconditioned FGMRES solve.
 
 Ported: the 2-way block preconditioner with the inexact Schur
-fieldsplit, solver types gmres/fgmres (both run flexible GMRES), the
-``loads-only`` RHS and ``solver chunk``.  The other branches raise
-NotImplementedError naming their ROADMAP item.
+fieldsplit or the exact (dense LU) fluid-pressure block, solver types
+gmres/fgmres (both run flexible GMRES), both RHS modes (``loads-only``
+and the reference drivers' ``full-residual``, whose history products
+run on the device operators ``H_dev``), ``solver chunk`` and
+``print_timings``.  The other branches raise NotImplementedError naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import math
 import time as _time
 
 import numpy as np
 import scipy.sparse as sp
 import torch
+from torch import nn
 
 from ..fem.bcs import bc_dofs_values, zero_rows
 from ..fem.dofmap import FunctionSpace, MixedSpace, vertex_embedding
@@ -29,7 +32,7 @@ from ..ops.dia import device_matrix
 from ..ops.sparse import FieldMatrix
 from ..precond.amg import rigid_body_modes
 from ..precond.block import BlockPreconditioner
-from ..precond.inner import InnerConfig, build_inner_solver
+from ..precond.inner import ITERATED, InnerConfig, build_inner_solver
 from ..precond.schur import build_schur_fieldsplit
 from ..solvers.convergence import FieldwiseTest
 from ..solvers.gmres import fgmres
@@ -212,19 +215,14 @@ class Poromechanics(AbstractPhysics):
         p = self.parameters
         odb = p.get("options db")
         cfg = odb.inner_config(block) if odb is not None else None
-        if cfg is not None:
-            # the options DB builds porotpu's InnerConfig: same fields
-            cfg = InnerConfig(
-                **{f.name: getattr(cfg, f.name) for f in dataclasses.fields(InnerConfig)}
-            )
-        else:
+        if cfg is None:
             cfg = InnerConfig.from_reference_options(
                 p.get("inner ksp type", "gmres"),
                 p.get("inner pc type", "hypre"),
                 int(p.get("inner maxiter", 10)),
             )
         ii = p.get("inner iters")
-        if ii is not None and cfg.method in ("cg", "cg+amg", "chebyshev", "amg"):
+        if ii is not None and cfg.method in ITERATED:
             cfg.iters = int(ii)
             if cfg.method == "amg":
                 cfg.sweeps = int(ii)
@@ -271,11 +269,13 @@ class Poromechanics(AbstractPhysics):
         whole solver state to ``self.device``."""
         p = self.parameters
         if p.get("solver cache path"):
-            raise NotImplementedError("the solver cache is not ported yet (ROADMAP M7)")
+            raise NotImplementedError("the solver cache is not ported yet (ROADMAP M7.5)")
         t0 = _time.perf_counter()
         self._build_operators()
         self.A_dev = self.A_dev.to(self.device)
         self.pc = self.pc.to(self.device)
+        if self.H_dev is not None:
+            self.H_dev = self.H_dev.to(self.device)
         self.bc_dofs = self.bc_dofs.to(self.device)
         self.bc_vals = self.bc_vals.to(self.device)
         self._finalize_solver()
@@ -285,25 +285,22 @@ class Poromechanics(AbstractPhysics):
         log("---- [Solver] Solver created in {}s".format(self.t_setup))
 
     def _build_operators(self):
-        """The 2-way inexact branch of porotpu/models/poromechanics.py:453-646."""
+        """The 2-way branches of porotpu/models/poromechanics.py:453-709."""
         W = self.W
         ns_p, nf_p, np_p = self.padded_sizes
         dtype = self.dtype
         p = self.parameters
         if self.three_way:
             raise NotImplementedError(
-                f"pc type {self.pc_type!r} (3-way block PC) is not ported yet (ROADMAP M7)"
+                f"pc type {self.pc_type!r} (3-way block PC) is not ported yet (ROADMAP M7.1)"
             )
         if _resolve_dtype(p.get("pc dtype"), dtype) != dtype:
             raise NotImplementedError(
                 "a 'pc dtype' other than the solve dtype (CastPC) is not ported yet "
-                "(ROADMAP M7)"
+                "(ROADMAP M7.1)"
             )
-        if self.assembler.rhs_mode != "loads-only":
-            raise NotImplementedError(
-                f"rhs mode {self.assembler.rhs_mode!r} is not ported yet (ROADMAP M7); "
-                "use 'loads-only'"
-            )
+        if self.assembler.rhs_mode not in ("loads-only", "full-residual"):
+            raise ValueError(f"unknown rhs mode {self.assembler.rhs_mode!r}")
         dim = self.mesh.dim
 
         Ab, Pb, (bc_dofs, bc_vals) = self._bc_applied_blocks()
@@ -349,10 +346,42 @@ class Poromechanics(AbstractPhysics):
 
         cfg_fp = self._inner_cfg("fp")
         if cfg_fp.method == "lu":
+            solve_fp = self._exact_fp_solve(cfg_fp, _pget)
+        else:
+            solve_fp = self._schur_fp_solve(_pget, bc_dofs, B_f, xyz_f, xyz_p, emb_pf)
+        self.pc = BlockPreconditioner(
+            ns_p,
+            nf_p,
+            np_p,
+            solve_s,
+            solve_fp,
+            Pfs=device_matrix(_pget("f", "s"), dtype),
+            Pps=device_matrix(_pget("p", "s"), dtype, row_emb=emb_ps),
+        )
+        self.H_dev, self._hist_terms = self._history_operators(emb_ps)
+
+    def _exact_fp_solve(self, cfg_fp, _pget):
+        """The exact operating point: one dense LU of the whole fp block
+        (porotpu/models/poromechanics.py:563-573, petsc-options-exact)."""
+        _, nf_p, np_p = self.padded_sizes
+        if nf_p + np_p > cfg_fp.lu_max_size:
             raise NotImplementedError(
-                "the exact fluid-pressure solve (dense LU / fgmres+fs) is not "
-                "ported yet (ROADMAP M7)"
+                f"the fluid-pressure block ({nf_p + np_p} dofs) exceeds lu_max_size "
+                f"{cfg_fp.lu_max_size}: its quasi-exact fgmres+fs solve is not ported "
+                "yet (ROADMAP M7.2)"
             )
+        P_fpfp = sp.bmat(
+            [[_pget("f", "f"), _pget("f", "p")], [_pget("p", "f"), _pget("p", "p")]],
+            format="csr",
+        )
+        return build_inner_solver(P_fpfp, cfg_fp, dtype=self.dtype)
+
+    def _schur_fp_solve(self, _pget, bc_dofs, B_f, xyz_f, xyz_p, emb_pf):
+        """The inexact operating point: the lower Schur fieldsplit with the
+        dcc or selfp Schur (porotpu/models/poromechanics.py:530-561, 618-633)."""
+        ns_p, nf_p, np_p = self.padded_sizes
+        dim = self.mesh.dim
+        p = self.parameters
         schur_kind = p.get("schur precondition", "dcc")
         odb = p.get("options db")
         if odb is not None:
@@ -372,7 +401,7 @@ class Poromechanics(AbstractPhysics):
         p_bc = bc_dofs[bc_dofs >= ns_p + nf_p] - (ns_p + nf_p)
         visc[p_bc] = 0.0  # Dirichlet pressure rows stay identity
 
-        solve_fp = build_schur_fieldsplit(
+        return build_schur_fieldsplit(
             _pget("f", "f"),
             _pget("f", "p"),
             _pget("p", "f"),
@@ -384,20 +413,34 @@ class Poromechanics(AbstractPhysics):
             coords_f=xyz_f,
             coords_p=xyz_p,
             row_emb_pf=emb_pf,
-            dtype=dtype,
+            dtype=self.dtype,
             schur_kind=schur_kind,
             mass_drag_diag=mdiag,
             visc_diag=visc,
         )
-        self.pc = BlockPreconditioner(
-            ns_p,
-            nf_p,
-            np_p,
-            solve_s,
-            solve_fp,
-            Pfs=device_matrix(_pget("f", "s"), dtype),
-            Pps=device_matrix(_pget("p", "s"), dtype, row_emb=emb_ps),
-        )
+
+    def _history_operators(self, emb_ps):
+        """The full-residual RHS's device operators and term spec
+        (porotpu/models/poromechanics.py:690-709): the shared primitives
+        (Mv_s, D_s, Mp; Mv_f and Mfs when the degrees differ) padded to the
+        field sizes, D_s under the P1 -> P2 row embedding.  (None, None)
+        in loads-only mode."""
+        if self.assembler.rhs_mode != "full-residual":
+            return None, None
+        ns_p, nf_p, np_p = self.padded_sizes
+        shapes = {
+            "Mv_s": (ns_p, ns_p),
+            "Mv_f": (nf_p, nf_p),
+            "Mfs": (nf_p, ns_p),
+            "D_s": (np_p, ns_p),
+            "Mp": (np_p, np_p),
+        }
+        h_embs = {"D_s": dict(row_emb=emb_ps)}
+        H = nn.ModuleDict({
+            k: device_matrix(self._pad_rect(v, *shapes[k]), self.dtype, **h_embs.get(k, {}))
+            for k, v in self.assembler.history_ops().items()
+        })
+        return H, self.assembler.history_term_spec()
 
     # ------------------------------------------------------------------
     def _finalize_solver(self):
@@ -409,10 +452,10 @@ class Poromechanics(AbstractPhysics):
         """
         p = self.parameters
         if p.get("inner monitor", False):
-            raise NotImplementedError("inner monitors are not ported yet (ROADMAP M7)")
+            raise NotImplementedError("inner monitors are not ported yet (ROADMAP M7.6)")
         if int(p.get("inner accel order", 0)) != 0:
             raise NotImplementedError(
-                "Anderson acceleration ('inner accel order') is not ported yet (ROADMAP M7)"
+                "Anderson acceleration ('inner accel order') is not ported yet (ROADMAP M7.3)"
             )
         solver_type = p.get("solver type", "gmres")
         rtol = float(p.get("solver rtol", 1e-6))
@@ -432,7 +475,7 @@ class Poromechanics(AbstractPhysics):
                 maxiter = int(g["ksp_max_it"])
         if solver_type not in ("gmres", "fgmres"):
             raise NotImplementedError(
-                f"solver type {solver_type!r} is not ported yet (ROADMAP M7)"
+                f"solver type {solver_type!r} is not ported yet (ROADMAP M7.3)"
             )
         restart = int(p.get("gmres restart", min(50, maxiter)))
         # "solver chunk": ceil(maxiter/chunk) warm-started calls of a
@@ -471,12 +514,26 @@ class Poromechanics(AbstractPhysics):
         self._solve = _solve
 
     # ------------------------------------------------------------------
+    @torch.inference_mode()
+    def _rhs_hist(self):
+        """The history part of the full-residual RHS, sum of c * H[op] @ vec
+        in the order of the term spec (porotpu/models/poromechanics.py:876-887)."""
+        vecs = {"us1": self.us_nm1, "us2": self.us_nm2, "uf1": self.uf_nm1, "p1": self.p_nm1}
+        parts = {}
+        for (field, hv), (op, c) in self._hist_terms.items():
+            contrib = c * self.H_dev[op].matvec(vecs[hv])
+            parts[field] = parts[field] + contrib if field in parts else contrib
+        return torch.cat([parts["s"], parts["f"], parts["p"]])
+
     def get_rhs(self, t):
-        """Load vector at time t with the Dirichlet values set (loads-only)."""
+        """Load vector at time t, plus the history terms in full-residual
+        mode, with the Dirichlet values set (porotpu :890-901)."""
         loads = self.assembler.get_load_vector(t)
         b_np = np.zeros(self.n_pad)
         b_np[self.pad_index] = loads
         b = torch.as_tensor(b_np, dtype=self.dtype).to(self.device)
+        if self.H_dev is not None:
+            b = b + self._rhs_hist()
         b[self.bc_dofs] = self.bc_vals
         return b
 
@@ -507,6 +564,7 @@ class Poromechanics(AbstractPhysics):
         self.p_nm1 = res.x[ns_p + nf_p :]
         self.iteration_log.append(total_its)
         self.last_result = res
+        self.last_rhs = b  # the right-hand side of this step (history before rotation)
         if self.parameters.get("solver monitor", False):
             hist = res.history[~np.isnan(res.history)]
             for k, r in enumerate(hist):
@@ -523,3 +581,65 @@ class Poromechanics(AbstractPhysics):
     def unpadded_solution(self):
         """Solution vector in the original (unpadded) dof numbering."""
         return self.sol.cpu().numpy()[self.pad_index]
+
+    # ------------------------------------------------------------------
+    def _stage_seconds(self, fn, v, reps):
+        """Seconds per call of ``fn(v)``: one warm-up, then ``reps`` calls
+        between two CUDA events on the card (the device's time, launches
+        queued back to back), or the host's clock on the CPU."""
+        with torch.inference_mode():
+            fn(v)
+            if self.device.type != "cuda":
+                t0 = _time.perf_counter()
+                for _ in range(reps):
+                    fn(v)
+                return (_time.perf_counter() - t0) / reps
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize(self.device)
+            start.record()
+            for _ in range(reps):
+                fn(v)
+            end.record()
+            torch.cuda.synchronize(self.device)
+            return start.elapsed_time(end) / 1e3 / reps
+
+    def pc_timings(self, reps: int = 10) -> dict:
+        """Seconds per application of each stage of the 2-way block PC and
+        of the whole PC, each timed standalone on a vector of ones
+        (porotpu/models/poromechanics.py:pc_timings)."""
+        pc = self.pc
+        return {
+            name: self._stage_seconds(
+                fn, torch.ones(n, dtype=self.dtype, device=self.device), reps
+            )
+            for name, fn, n in (
+                ("solid", pc.solve_s, pc.ns),
+                ("fluid-pressure", pc.solve_fp, pc.nf + pc.np_),
+                ("total", pc, pc.ns + pc.nf + pc.np_),
+            )
+        }
+
+    def print_timings(self):
+        """The solver's total time and the PC's stage breakdown, in the
+        format of porotpu/models/poromechanics.py:1043-1085 (reference
+        lib/Preconditioner.py:252-260): the stages, timed standalone, are
+        scaled to sum to the whole PC's time."""
+        log("\n===== Timing Solver: {:.3f}s".format(self.t_solve_total))
+        if self.pc_applies <= 0 or getattr(self, "pc", None) is None:
+            return
+        st = self.pc_timings()
+        napp = self.pc_applies
+        log(
+            "\n===== Timing preconditioner: {:.3f}s ({} applications; "
+            "stages timed standalone, rescaled to the total)".format(st["total"] * napp, napp)
+        )
+        ssum = st["solid"] + st["fluid-pressure"]
+        scale = (st["total"] / ssum) if ssum > 0 else 1.0
+        log(
+            "\tSolid solver: {:.3f}s"
+            "\n\tFluid-pressure solver: {:.3f}s".format(
+                st["solid"] * scale * napp,
+                st["fluid-pressure"] * scale * napp,
+            )
+        )

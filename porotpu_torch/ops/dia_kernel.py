@@ -66,6 +66,9 @@ MAX_DIAGONALS = 48 * 1024 // 4
 COUNTS = {"dia_mv": 0, "dia_rmv": 0, "dia_mv_padded": 0, "plain": 0}
 # The same launches by operator: (kernel, dtype, nd, nrows) -> launches.
 LAUNCHES = collections.Counter()
+# The launches among them that took the masked scalar path (a length that
+# is not a whole number of 16-byte chunks, or an unaligned input).
+SCALAR_LAUNCHES = collections.Counter()
 
 _lib = None
 
@@ -74,6 +77,7 @@ def reset_counts():
     for k in COUNTS:
         COUNTS[k] = 0
     LAUNCHES.clear()
+    SCALAR_LAUNCHES.clear()
 
 
 def _nvcc() -> str:
@@ -278,8 +282,11 @@ def _launch_planned(name, fn, data, offsets, x, ne, y, plan):
         raise ValueError(f"{name}: data must be 16-byte aligned")
     nd, nrows = data.shape
     vec = plan.vec and x.data_ptr() % 16 == 0
-    return _launch(name, fn, data, offsets, nd, nrows, x, ne, y,
-                   int(vec), plan.warps, plan.cluster, plan.stages, plan.tile)
+    _launch(name, fn, data, offsets, nd, nrows, x, ne, y,
+            int(vec), plan.warps, plan.cluster, plan.stages, plan.tile)
+    if not vec:
+        SCALAR_LAUNCHES[name, str(data.dtype).removeprefix("torch."), nd, nrows] += 1
+    return y
 
 
 # -- K1 ----------------------------------------------------------------------

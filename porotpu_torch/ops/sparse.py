@@ -2,14 +2,20 @@
 
 ELL is the last-resort format of ``device_matrix`` (unbanded blocks); its
 product is a plain torch gather, as porotpu computes it outside Pallas.
+``ELL_PRODUCTS`` counts those products by (product, dtype, rows, width).
 """
 
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 from torch import nn
+
+
+ELL_PRODUCTS = collections.Counter()
 
 
 class ELL(nn.Module):
@@ -44,12 +50,18 @@ class ELL(nn.Module):
         cols = np.where(pad, cols[:, 0:1], cols)
         return cls(torch.as_tensor(data, dtype=dtype), torch.from_numpy(cols), m)
 
+    def _count(self, product):
+        n, L = self.data.shape
+        ELL_PRODUCTS[product, str(self.data.dtype).removeprefix("torch."), n, L] += 1
+
     def matvec(self, x):
+        self._count("matvec")
         return (self.data * x[self.cols]).sum(1)
 
     forward = matvec
 
     def rmatvec(self, x):
+        self._count("rmatvec")
         out = x.new_zeros(self.ncols)
         return out.index_add_(0, self.cols.reshape(-1), (self.data * x[:, None]).reshape(-1))
 

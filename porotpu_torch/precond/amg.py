@@ -241,7 +241,7 @@ def amg_setup(
     if coords is None:
         raise NotImplementedError(
             "AMG without node coordinates (greedy strength-graph aggregation) "
-            "is not ported yet (ROADMAP M7)"
+            "is not ported yet (ROADMAP M7.2)"
         )
     A = A.tocsr()
     n = A.shape[0]

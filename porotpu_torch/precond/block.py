@@ -4,7 +4,7 @@
     yfp = solve_fp(x_fp - [Pfs ys; Pps ys])
 
 (reference lib/Preconditioner.py:219-241).  The 3-way double sweep and
-the mixed-precision ``CastPC`` wrapper are not ported yet (ROADMAP M7).
+the mixed-precision ``CastPC`` wrapper are not ported yet (ROADMAP M7.1).
 """
 
 from __future__ import annotations

@@ -1,10 +1,14 @@
 """Inner (per-field) approximate solvers (porotpu/precond/inner.py).
 
-Ported kinds: ``identity``, ``amg`` (preonly AMG V-cycles, the bench
-path's hypre stand-in) and ``plus-diag`` (the additive composite used by
-the dcc Schur solver).  The other kinds of porotpu — jacobi, lu,
-chebyshev, cg, cg+amg, fgmres+fs — raise NotImplementedError and are
-listed in ROADMAP M7.
+Kinds: ``identity``; ``jacobi`` (diagonal scaling); ``lu`` (the dense
+inverse, computed on the host in f64, applied as one matrix-vector
+product); ``chebyshev`` and ``cg`` (fixed-iteration, Jacobi
+preconditioned); ``amg`` (preonly V-cycles, the bench path's hypre
+stand-in); ``cg+amg`` (fixed-iteration CG preconditioned by one V-cycle,
+the drivers' default); ``plus-diag`` (the additive composite of the dcc
+Schur solver).  Every banded product goes through ``ops.dia`` (K1, or K2
+for a transpose, on the card).  ``fgmres+fs``, the quasi-exact
+fluid-pressure solve, is not ported yet (ROADMAP M7.2).
 """
 
 from __future__ import annotations
@@ -12,12 +16,15 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import scipy.linalg as sla
 import scipy.sparse as sp
 import torch
 from torch import nn
 
 from ..ops.dia import device_matrix
-from .amg import amg_setup
+from ..solvers.cg import cg_fixed
+from ..solvers.chebyshev import chebyshev
+from .amg import _power_lmax, amg_setup
 
 
 @dataclass
@@ -58,27 +65,30 @@ class InnerConfig:
         return cls(method="chebyshev", iters=min(maxiter, 10))
 
 
-def _not_ported(kind):
-    return NotImplementedError(
-        f"inner solver kind {kind!r} is not ported yet (ROADMAP M7); "
-        "ported kinds: identity, amg, plus-diag"
-    )
+KINDS = ("identity", "jacobi", "lu", "chebyshev", "cg", "amg", "cg+amg", "plus-diag")
+# the kinds whose iteration count "inner iters" sets
+ITERATED = ("cg+amg", "cg", "chebyshev", "amg")
 
 
 class InnerSolver(nn.Module):
     """An approximate solve b -> x for one block.
 
     ``payload`` maps names to modules (``amg``, ``A``, ``base``) or tensors
-    (``wdiag``); modules become submodules and tensors buffers, so
-    ``.to(device)`` moves the whole solver.
+    (``dinv``, ``inv``, ``wdiag``); modules become submodules and tensors
+    buffers, so ``.to(device)`` moves the whole solver.
     """
 
-    def __init__(self, kind, payload=None, iters=0):
+    def __init__(self, kind, payload=None, iters=0, lmax=1.0, cheb_frac=30.0):
         super().__init__()
-        if kind not in ("identity", "amg", "plus-diag"):
-            raise _not_ported(kind)
+        if kind not in KINDS:
+            raise NotImplementedError(
+                f"inner solver kind {kind!r} is not ported yet (ROADMAP M7.2); "
+                f"ported kinds: {', '.join(KINDS)}"
+            )
         self.kind = kind
         self.iters = iters
+        self.lmax = float(lmax)
+        self.cheb_frac = float(cheb_frac)
         payload = payload or {}
         self.mods = nn.ModuleDict(
             {k: v for k, v in payload.items() if isinstance(v, nn.Module)}
@@ -87,10 +97,27 @@ class InnerSolver(nn.Module):
             if isinstance(v, torch.Tensor):
                 self.register_buffer(k, v)
 
+    def _jacobi(self, r):
+        return self.dinv * r
+
     def forward(self, b):
         k = self.kind
         if k == "identity":
             return b
+        if k == "jacobi":
+            return self.dinv * b
+        if k == "lu":
+            # porotpu computes this product outside any Pallas kernel too
+            return torch.mv(self.inv, b)
+        if k == "chebyshev":
+            return chebyshev(
+                self.mods["A"].matvec, b, self.lmax / self.cheb_frac, 1.1 * self.lmax,
+                iters=self.iters, M=self._jacobi,
+            )
+        if k == "cg":
+            return cg_fixed(self.mods["A"].matvec, b, M=self._jacobi, iters=self.iters)
+        if k == "cg+amg":
+            return cg_fixed(self.mods["A"].matvec, b, M=self.mods["amg"], iters=self.iters)
         if k == "amg":
             amg = self.mods["amg"]
             x = amg(b)
@@ -109,14 +136,36 @@ def build_inner_solver(
     coords: np.ndarray | None = None,
     dtype=torch.float32,
 ) -> InnerSolver:
-    """Host setup of one inner solver (porotpu/precond/inner.py:300)."""
+    """Host setup of one inner solver (porotpu/precond/inner.py:300-368)."""
     method = cfg.method
     if method == "lu" and A.shape[0] > cfg.lu_max_size:
+        # above the dense cap: tight CG + AMG at default AMG settings
         method = "cg+amg"
+        cfg = InnerConfig(method="cg+amg", iters=cfg.lu_fallback_iters)
     if method == "identity":
         return InnerSolver("identity")
-    if method != "amg":
-        raise _not_ported(method)
+
+    diag = np.asarray(A.diagonal()).ravel()
+    diag[diag == 0] = 1.0
+    dinv = torch.as_tensor(1.0 / diag, dtype=dtype)
+    if method == "jacobi":
+        return InnerSolver("jacobi", {"dinv": dinv})
+    if method == "lu":
+        # raises LinAlgError on a singular block: no fallback
+        inv = sla.inv(np.asarray(A.todense(), dtype=np.float64))
+        return InnerSolver("lu", {"inv": torch.as_tensor(inv, dtype=dtype)})
+    if method == "chebyshev":
+        return InnerSolver(
+            "chebyshev",
+            {"A": device_matrix(A, dtype), "dinv": dinv},
+            iters=cfg.iters,
+            lmax=_power_lmax(A, 1.0 / diag),
+            cheb_frac=cfg.cheb_frac,
+        )
+    if method == "cg":
+        return InnerSolver("cg", {"A": device_matrix(A, dtype), "dinv": dinv}, iters=cfg.iters)
+    if method not in ("amg", "cg+amg"):
+        raise ValueError(f"unknown inner method {cfg.method}")
     amg = amg_setup(
         A,
         dofs_per_node=dofs_per_node,
@@ -133,4 +182,6 @@ def build_inner_solver(
     )
     # the hierarchy's fine-level operator doubles as the block operator
     Eop = amg.levels[0].A if len(amg.levels) else device_matrix(A, dtype)
-    return InnerSolver("amg", {"amg": amg, "A": Eop}, iters=max(cfg.sweeps, 1))
+    if method == "amg":
+        return InnerSolver("amg", {"amg": amg, "A": Eop}, iters=max(cfg.sweeps, 1))
+    return InnerSolver("cg+amg", {"amg": amg, "A": Eop}, iters=cfg.iters)

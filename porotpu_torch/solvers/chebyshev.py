@@ -1,0 +1,39 @@
+"""Chebyshev semi-iteration (porotpu/solvers/chebyshev.py:chebyshev).
+
+The inner solve of the ``chebyshev`` kind: a fixed polynomial in M^-1 A
+over [lmin, lmax], the three-term recurrence of Saad, "Iterative
+Methods", algorithm 12.1.  The recurrence scalars are host floats, so the
+loop never reads a value back from the device.  The bounds come from the
+host's power iteration at setup (``precond.amg._power_lmax``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def chebyshev(A, b, lmin, lmax, iters=10, M=None, x0=None):
+    """Chebyshev iteration targeting eigenvalues of M^-1 A in [lmin, lmax].
+
+    With x0 absent the first residual is b itself (porotpu multiplies A
+    by the zero vector).
+    """
+    if M is None:
+        M = lambda r: r  # noqa: E731
+    theta = 0.5 * (lmax + lmin)
+    delta = 0.5 * (lmax - lmin)
+    sigma1 = theta / delta
+    if x0 is None:
+        x, r = torch.zeros_like(b), b
+    else:
+        x, r = x0, b - A(x0)
+    d = M(r) / theta
+    rho = 1.0 / sigma1
+    for _ in range(iters):
+        x = x + d
+        r = r - A(d)
+        z = M(r)
+        rho_new = 1.0 / (2.0 * sigma1 - rho)
+        d = rho_new * rho * d + (2.0 * rho_new / delta) * z
+        rho = rho_new
+    return x + d

@@ -1,0 +1,257 @@
+"""Port parity for the reference drivers' path: swelling and footing (2D)
+with the options files and at the drivers' defaults, porotpu_torch
+against porotpu on the same problem in f64 on the CPU.
+
+Each run solves its time steps on both sides and must give the same outer
+iteration count at every step, the last step's residual history to 1e-8
+relative (both record it in f32), the final solution to 1e-10 relative
+(summation order only) and the true-residual field-wise guard.  The runs:
+
+- swelling N=4, petsc-options-inexact (cg+amg inner solves, LU Schur);
+- footing N=4, petsc-options-inexact, pc type undrained (the size
+  porotpu's tests/test_drivers.py runs);
+- swelling N=4, petsc-options-exact (dense LU for the solid and the whole
+  fluid-pressure block);
+- swelling N=3 at the drivers' defaults over three steps (tf 0.3): the
+  full-residual RHS, whose history terms couple the steps, and cg+amg
+  inner solves.
+
+Also: the storage format device_matrix chose for each operator of
+footing (N=4 with banded transposes, N=12 with ELL coupling blocks)
+against porotpu's, the options files and the CLI parser against
+porotpu's, a driver run as a module with jax unimportable, and the
+features that still raise.
+"""
+
+import collections
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+from porotpu.models import benchmarks as jbench
+from porotpu.utils.options import OptionsDB as JOptionsDB
+from porotpu.utils.parser import Parser as JParser
+from porotpu_torch.models import benchmarks
+from porotpu_torch.precond.amg import amg_setup
+from porotpu_torch.precond.inner import InnerSolver
+from porotpu_torch.solvers.convergence import FieldwiseTest
+from porotpu_torch.utils.options import OptionsDB
+from porotpu_torch.utils.parser import Parser
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OPTION_FILES = ("petsc-options-inexact", "petsc-options-exact", "petsc-options-exact-iterative")
+
+# name -> (benchmark, N, command-line flags, parameter overrides)
+RUNS = {
+    "swelling_inexact": ("swelling", 4, ["--petsc-options", "petsc-options-inexact"], {}),
+    "footing_inexact": (
+        "footing", 4,
+        ["--petsc-options", "petsc-options-inexact", "--pc-type", "undrained"], {},
+    ),
+    "swelling_exact": ("swelling", 4, ["--petsc-options", "petsc-options-exact"], {}),
+    "swelling_defaults_3_steps": ("swelling", 3, [], {"tf": 0.3}),
+}
+
+
+def _argv(flags):
+    """Flags with the options file as a path into the repository."""
+    return [os.path.join(REPO, f) if f.startswith("petsc-options") else f for f in flags]
+
+
+@pytest.fixture(scope="module", params=list(RUNS))
+def run(request):
+    name, N, flags, overrides = RUNS[request.param]
+    jp = getattr(jbench, name)(N, parser=JParser(_argv(flags)), overrides=overrides)
+    jp.solve()
+    p = getattr(benchmarks, name)(
+        N, parser=Parser(_argv(flags)), overrides=overrides, device="cpu"
+    )
+    p.solve()
+    return request.param, jp, p
+
+
+def test_run_matches_porotpu(run):
+    name, jp, p = run
+    assert p.dtype == torch.float64
+    assert p.iteration_log == jp.iteration_log, name
+    assert len(p.iteration_log) == (3 if name.endswith("3_steps") else 1)
+    jr, r = jp.last_result, p.last_result
+    assert r.converged and bool(jr.converged)
+    jh = np.asarray(jr.history)
+    assert np.array_equal(np.isnan(r.history), np.isnan(jh))
+    live = ~np.isnan(jh)
+    np.testing.assert_allclose(r.history[live], jh[live], rtol=1e-8, atol=0)
+    x, jx = p.sol.numpy(), np.asarray(jp.sol)
+    assert np.abs(x - jx).max() <= 1e-10 * np.abs(jx).max()
+
+
+def test_run_true_residual_guard(run):
+    name, _, p = run
+    b = p.last_rhs
+    with torch.inference_mode():
+        r = b - p.A_dev.matvec(p.sol)
+        ea, er = FieldwiseTest.from_sizes(p.padded_sizes, b).errors(r)
+    atol = float(p.parameters["solver atol"])
+    rtol = float(p.parameters["solver rtol"])
+    assert float(ea) < atol or float(er) < rtol, (name, float(ea), float(er))
+
+
+def test_full_residual_history_reaches_the_rhs(run):
+    """At the defaults the RHS of a later step carries the history terms
+    through the device operators H_dev; with the options files the
+    drivers also run full-residual (porotpu's default rhs mode)."""
+    name, jp, p = run
+    assert p.assembler.rhs_mode == "full-residual" and p.H_dev is not None
+    assert sorted(p.H_dev.keys()) == sorted(jp.H_dev.keys())
+    b_loads = np.zeros(p.n_pad)
+    b_loads[p.pad_index] = p.assembler.get_load_vector(p.t)
+    b = p.get_rhs(p.t).numpy()
+    free = np.ones(p.n_pad, bool)
+    free[p.bc_dofs.numpy()] = False
+    assert np.abs(b - b_loads)[free].max() > 0
+    jb = np.asarray(jp.get_rhs(jp.t))
+    assert np.abs(b - jb).max() <= 1e-12 * np.abs(jb).max()
+
+
+OPERATORS = ("DIA", "ELL", "Dense", "Transposed")
+
+
+def _format(op):
+    """(rows, cols, format) of a device operator, on either side; a
+    Transposed block is "T" and its inner's format."""
+    name = type(op).__name__
+    if name == "Transposed":
+        rows, cols, fmt = _format(op.inner)
+        return cols, rows, "T" + fmt
+    if name == "ELL":
+        return int(op.data.shape[0]), int(op.ncols), name
+    if name == "Dense":
+        return (*map(int, op.data.shape), name)
+    return int(op.nrows), int(op.ncols), name
+
+
+def _pc_formats(obj, acc, seen, port):
+    """Count the formats of the operators in a PC tree: the port's modules,
+    or porotpu's objects, dicts and sequences."""
+    if id(obj) in seen:
+        return
+    seen.add(id(obj))
+    if type(obj).__name__ in OPERATORS:
+        acc[_format(obj)] += 1
+        return
+    if port:
+        leaves = list(obj.children())
+    elif isinstance(obj, dict):
+        leaves = list(obj.values())
+    elif isinstance(obj, (list, tuple)):
+        leaves = list(obj)
+    elif type(obj).__module__.startswith("porotpu."):
+        leaves = list(vars(obj).values())
+    else:
+        return
+    for leaf in leaves:
+        _pc_formats(leaf, acc, seen, port)
+    return acc
+
+
+@pytest.mark.parametrize("N", [4, 12])
+def test_footing_storage_formats_match_porotpu(N):
+    """device_matrix picks the same format (DIA, ELL, Dense, Transposed)
+    for every block of the outer operator, every history operator and
+    every operator of the PC as porotpu's: at N=4 the coupling blocks and
+    prolongators are banded transposes (K2 on the card), at N=12 the
+    coupling blocks store ELL."""
+    flags = _argv(["--petsc-options", "petsc-options-inexact", "--pc-type", "undrained"])
+    jp = jbench.footing(N, parser=JParser(flags))
+    jp._build_operators()
+    p = benchmarks.footing(N, parser=Parser(flags), device="cpu")
+    p._build_operators()
+    blocks = {r + c: _format(op) for (r, c), op in jp.A_dev.blocks.items()}
+    assert {k: _format(op) for k, op in p.A_dev.blocks.items()} == blocks
+    assert {k: _format(op) for k, op in p.H_dev.items()} == {
+        k: _format(op) for k, op in jp.H_dev.items()
+    }
+    pc = _pc_formats(p.pc, collections.Counter(), set(), port=True)
+    assert pc == _pc_formats(jp.pc, collections.Counter(), set(), port=False)
+    fmts = {f for _, _, f in blocks.values()} | {f for _, _, f in pc}
+    assert ("TDIA" in fmts) if N == 4 else ("ELL" in fmts)
+
+
+@pytest.mark.parametrize("fname", OPTION_FILES)
+def test_options_files_give_porotpus_inner_configs(fname):
+    path = os.path.join(REPO, fname)
+    db, jdb = OptionsDB.from_file(path), JOptionsDB.from_file(path)
+    assert db.entries == jdb.entries
+    prefixes = {k.split("_")[0] for k in db.entries} | {"fp_fieldsplit_0", "fp_fieldsplit_1"}
+    assert {"global", "s", "f", "p", "diff", "fp"} <= prefixes
+    for prefix in sorted(prefixes):
+        assert db.prefix_items(prefix) == jdb.prefix_items(prefix), prefix
+        cfg, jcfg = db.inner_config(prefix), jdb.inner_config(prefix)
+        assert (cfg is None) == (jcfg is None), prefix
+        if cfg is not None:
+            assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg), prefix
+
+
+def test_parser_gives_porotpus_options_dict():
+    flags = [
+        "-N", "7", "--N-refinements", "1", "--pc-type", "undrained", "--time-final", "0.3",
+        "--dtype", "float32", "--monitor", "--solver-chunk", "50",
+        "--petsc-options", os.path.join(REPO, "petsc-options-inexact"),
+    ]
+    got, want = Parser(flags).options_dict, JParser(flags).options_dict
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        assert (got[k].entries == v.entries) if k == "options db" else got[k] == v, k
+    assert Parser(flags).options.device == "cuda"
+    cpu = Parser(flags + ["--device", "cpu"])
+    assert cpu.options.device == "cpu" and sorted(cpu.options_dict) == sorted(want)
+
+
+def test_driver_module_runs_without_jax():
+    code = (
+        "import runpy, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.argv = ['swelling', '-N', '2', '--device', 'cpu']\n"
+        "runpy.run_module('porotpu_torch.drivers.swelling', run_name='__main__')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'porotpu')]\n"
+        "assert bad == ['jax'], bad\n"
+    )
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env.pop("PORO_PLATFORM", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "Solved time t=0.10." in proc.stdout and "Timing Solver" in proc.stdout
+
+
+def _swelling_2d(**overrides):
+    return benchmarks.swelling(2, overrides=overrides, device="cpu")
+
+
+@pytest.mark.parametrize(
+    "what,attempt",
+    [
+        ("'cg'.*M7\\.3", lambda: _swelling_2d(**{"solver type": "cg"}).create_solver()),
+        ("solver cache.*M7\\.5",
+         lambda: _swelling_2d(**{"solver cache path": "unused"}).create_solver()),
+        ("export.*M7\\.5", lambda: _swelling_2d(**{"output solutions": True})),
+        ("monitors.*M7\\.6", lambda: _swelling_2d(**{"inner monitor": True}).create_solver()),
+        ("greedy.*M7\\.2", lambda: amg_setup(sp.identity(8, format="csr"))),
+        ("'fgmres\\+fs'.*M7\\.2", lambda: InnerSolver("fgmres+fs")),
+    ],
+    ids=["outer_cg", "cache", "export", "inner_monitor", "greedy_amg", "fgmres_fs"],
+)
+def test_other_unported_features_raise(what, attempt):
+    with pytest.raises(NotImplementedError, match=what):
+        attempt()
+

@@ -124,3 +124,61 @@ def test_block_pc_moves_with_to(builds):
         b.dtype == torch.float32 for b in moved.buffers() if b.is_floating_point()
     )
     moved.to(torch.float64)
+
+
+# -- inner kinds: the same CSR block through porotpu's and the port's builder --
+
+INNER_CASES = {
+    "jacobi": dict(method="jacobi"),
+    "lu": dict(method="lu"),
+    "chebyshev": dict(method="chebyshev", iters=6),
+    "cg": dict(method="cg", iters=7),
+    "cg+amg": dict(method="cg+amg", iters=5, amg_coarse_size=100),
+    # above the dense cap "lu" turns into cg+amg at lu_fallback_iters
+    "lu_over_cap": dict(method="lu", lu_max_size=100, lu_fallback_iters=3),
+}
+
+
+@pytest.fixture(scope="module")
+def solid_block(builds):
+    """porotpu's BC-applied, padded solid preconditioner block with its
+    near-nullspace and node coordinates (swelling-3d N=3, 1152 rows)."""
+    jp, _ = builds
+    _, Pb, _, (bc_dofs, _) = jp._bc_applied_blocks()
+    ns, ns_p, dim = jp.ns, jp.ns_p, jp.mesh.dim
+    space = jp.W.space("s")
+    B = jp._rigid_modes_padded(space, ns, ns_p, 0, bc_dofs)
+    xyz = jp._padded_coords(space, (ns_p - ns) // dim)
+    return Pb[("s", "s")].tocsr(), dict(dofs_per_node=dim, near_nullspace=B, coords=xyz)
+
+
+@pytest.mark.parametrize("case", list(INNER_CASES))
+def test_inner_kind_matches_porotpu_f64(case, solid_block):
+    from porotpu.precond.inner import InnerConfig as JConfig
+    from porotpu.precond.inner import build_inner_solver as jbuild
+    from porotpu_torch.precond.inner import InnerConfig, build_inner_solver
+
+    A, kw = solid_block
+    js = jbuild(A, JConfig(**INNER_CASES[case]), dtype=jnp.float64, **kw)
+    ts = build_inner_solver(A, InnerConfig(**INNER_CASES[case]), dtype=torch.float64, **kw)
+    assert ts.kind == js.kind and ts.iters == js.iters
+    if case == "lu_over_cap":
+        assert ts.kind == "cg+amg" and ts.iters == 3
+    x = np.random.default_rng(5).normal(size=A.shape[0])
+    want = np.asarray(jax.jit(lambda o, v: o(v))(js, jnp.asarray(x)))
+    with torch.inference_mode():
+        got = ts(torch.from_numpy(x)).numpy()
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert np.isfinite(got).all() and err <= 1e-12, err
+
+
+@pytest.mark.parametrize("kind", ["cg", "cg+amg"])
+def test_cg_inner_kinds_on_zero_rhs_return_zeros(kind, solid_block):
+    from porotpu_torch.precond.inner import InnerConfig, build_inner_solver
+
+    A, kw = solid_block
+    ts = build_inner_solver(A, InnerConfig(method=kind, iters=4, amg_coarse_size=100),
+                            dtype=torch.float64, **kw)
+    with torch.inference_mode():
+        y = ts(torch.zeros(A.shape[0], dtype=torch.float64))
+    assert torch.equal(y, torch.zeros_like(y))

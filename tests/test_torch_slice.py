@@ -17,9 +17,9 @@ import pytest
 import torch
 
 from porotpu.models import benchmarks as jbench
-from porotpu.utils.options import OptionsDB
 from porotpu_torch.models.benchmarks import BENCH_OVERRIDES, swelling_3d
 from porotpu_torch.solvers.convergence import FieldwiseTest
+from porotpu_torch.utils.options import OptionsDB
 
 torch.set_num_threads(1)
 
@@ -101,6 +101,8 @@ def test_port_sources_never_import_jax():
     for root, _, names in os.walk(os.path.join(REPO, "porotpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
+    for sub in ("utils", "drivers"):
+        assert any(os.sep + sub + os.sep in f for f in files), sub
     bad = [f for f in files if pat.search(open(f).read())]
     assert bad == []
 
@@ -129,10 +131,19 @@ def test_chunk_must_be_a_multiple_of_restart():
 
 
 @pytest.mark.parametrize(
-    "override",
-    [{"pc type": "diagonal 3-way"}, {"rhs mode": "full-residual"}, {"pc dtype": "float32"}],
+    "override,what",
+    [
+        ({"pc type": "diagonal 3-way"}, "3-way block PC"),
+        ({"solver type": "aar"}, "'aar'"),
+        ({"pc dtype": "float32"}, "CastPC"),
+        ({"inner accel order": 1}, "Anderson"),
+        ("petsc-options-exact-iterative", "fgmres\\+fs"),
+    ],
+    ids=[f"override{k}" for k in range(5)],
 )
-def test_unported_branches_raise(override):
+def test_unported_branches_raise(override, what):
+    if isinstance(override, str):  # an options file: its fp block asks for fgmres+fs
+        override = {"options db": OptionsDB.from_file(os.path.join(REPO, override))}
     p = swelling_3d(2, overrides=dict(F64, **override), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=what + r".*ROADMAP M7\.\d"):
         p.create_solver()

@@ -2,9 +2,13 @@
 """Where one swelling-3d solve of the PyTorch/CUDA port spends its time.
 
     python3 tools/profile_torch_solve.py [float32|float64]
+    python3 tools/profile_torch_solve.py swelling -N 80 --petsc-options petsc-options-inexact
 
 Builds the bench configuration (bench.py overrides, f32 unless float64
-is named: then every transpose runs K2) on cuda:0,
+is named: then every transpose runs K2) on cuda:0, or, when the first
+argument names a driver of ``porotpu_torch.drivers`` (footing, swelling,
+swelling_3d), the problem that driver builds from the rest of the
+command line (f64, the first time step's right-hand side); then it
 solves once to warm up, then profiles one solve with torch.profiler and
 prints: wall time, the summed device time of all kernels and its share
 of the wall time (the rest is the device waiting on the host), and the
@@ -27,7 +31,7 @@ def _device_us(e):
     return v if v is not None else e.self_cuda_time_total
 
 
-def main(dtype="float32"):
+def main(what="float32", *argv):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -41,7 +45,15 @@ def main(dtype="float32"):
                          capture_output=True, text=True, check=True).stdout.strip())
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
-    problem = swelling_3d(13, overrides=dict(BENCH_OVERRIDES, dtype=dtype), device=dev)
+    if what in ("footing", "swelling", "swelling_3d"):
+        import importlib
+
+        driver = importlib.import_module("porotpu_torch.drivers." + what)
+        problem = driver.setup(list(argv))
+        label = f"{what} {' '.join(argv)}, {str(problem.dtype).removeprefix('torch.')}"
+    else:
+        problem = swelling_3d(13, overrides=dict(BENCH_OVERRIDES, dtype=what), device=dev)
+        label = what
     problem.create_solver()
     problem.first_timestep = False
     b = problem.get_rhs(problem.t0 + problem.dt)
@@ -61,7 +73,7 @@ def main(dtype="float32"):
         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
     ]
     dev_us = sum(_device_us(e) for e in kernels)
-    print(f"{torch.cuda.get_device_name(0)}, {dtype}: one solve, {res.iters} iterations, "
+    print(f"{torch.cuda.get_device_name(0)}, {label}: one solve, {res.iters} iterations, "
           f"wall {wall * 1e3:.3f} ms, device busy {dev_us / 1e3:.3f} ms "
           f"({100 * dev_us / 1e6 / wall:.1f}% of wall), {sum(e.count for e in kernels)} kernels")
     for e in sorted(kernels, key=lambda e: -_device_us(e))[:12]:
@@ -81,4 +93,4 @@ def main(dtype="float32"):
 
 
 if __name__ == "__main__":
-    sys.exit(main(*sys.argv[1:2]))
+    sys.exit(main(*sys.argv[1:]))
