@@ -21,6 +21,12 @@
    coupling block) runs K2.  One step with the counts reset around it
    (K2 and K1 launched, no plain product), three timed solves and the
    guard.
+3b. CastPC, bench.py's f64 datapoint: the f64 solve with the whole PC
+   built in f32 (``pc dtype`` float32).  One step, counts reset around
+   it: BENCH_r05's 9 iterations and the guard; K1 launched in f32 (the PC
+   payload, its transposes on dataT), K2 in f64 (the operator's
+   Transposed pressure rows) and never in f32; no plain product.  Three
+   timed solves.
 4. K1 against its plain version on the offset sets of the built N=13
    operators (the 233-band level-0 A, the 681-band level-1 A, an embedded
    coupling block and a restriction through dataT on negated offsets), in
@@ -75,6 +81,7 @@ was imported.  The last two stdout lines are the JSON kernel record and
 {"ok": true, "device": {...}}.
 """
 
+import collections
 import gc
 import json
 import os
@@ -97,6 +104,8 @@ DRIVER_RUNS = (
     ("swelling_exact", "swelling",
      ["-N", "20", "--petsc-options", "petsc-options-exact"], 7165, [8], True),
 )
+# phase 3b: bench.py's f64 datapoint, the PC built in f32 under CastPC
+CAST_PC = {"dtype": "float64", "pc dtype": "float32"}
 # phase 8 holds, from each run, this many of its heaviest K1 sets, K2 sets
 # and scalar-path sets against the plain version
 HELD_SETS = 4
@@ -488,6 +497,25 @@ def main():
     del f64
     gc.collect()
     torch.cuda.empty_cache()
+
+    # -- 3b. CastPC: the f64 solve with the PC built in f32 -----------------
+    print("-- f64 solve, f32 PC (CastPC; bench.py's f64 datapoint)", flush=True)
+    cast = swelling_3d(13, overrides=dict(BENCH_OVERRIDES, **CAST_PC), device=dev)
+    counts_c, launches_c = path_run(cast, dev, torch, dia_kernel, FieldwiseTest)
+    check(type(cast.pc).__name__ == "CastPC", "pc dtype float32 built no CastPC")
+    check(cast.iteration_log == [9],
+          f"CastPC: {cast.iteration_log} iterations, BENCH_r05's f64 datapoint took 9")
+    by_dtype = collections.Counter()
+    for (kernel, dt, _, _), n in launches_c.items():
+        by_dtype[kernel, dt] += n
+    print("CastPC launches by kernel and dtype: "
+          + ", ".join(f"{k} {dt}={n}" for (k, dt), n in sorted(by_dtype.items())))
+    check(by_dtype["dia_mv", "float32"] > 0, "CastPC: K1 never ran on the f32 PC payload")
+    check(by_dtype["dia_rmv", "float64"] > 0,
+          "CastPC: K2 never ran on the f64 operator's Transposed rows")
+    check(by_dtype["dia_rmv", "float32"] == 0,
+          "CastPC: K2 ran in f32, where transposes read dataT")
+    check(counts_c["plain"] == 0, f"CastPC: {counts_c['plain']} plain products")
 
     rng = np.random.default_rng(0)
     dtypes = {"f32": (torch.float32, 1e-5), "f64": (torch.float64, 1e-12)}

@@ -2,7 +2,7 @@
 
 ``to_torch(obj)`` rebuilds a porotpu operator or preconditioner tree —
 FieldMatrix, DIA (with dataT, col_emb, ne), Transposed, Dense, ELL, AMG,
-InnerSolver, SchurFieldsplit and the 2-way BlockPreconditioner — from
+InnerSolver, SchurFieldsplit, the 2-way BlockPreconditioner and CastPC — from
 ``np.asarray`` of its array leaves.  Classes are recognized by name, so
 this module imports no jax; the caller passes objects it already has.
 
@@ -19,7 +19,7 @@ import torch
 from .ops.dia import DIA, Dense, Transposed
 from .ops.sparse import ELL, FieldMatrix
 from .precond.amg import AMG, AMGLevel
-from .precond.block import BlockPreconditioner
+from .precond.block import BlockPreconditioner, CastPC
 from .precond.inner import InnerSolver
 from .precond.schur import SchurFieldsplit
 
@@ -29,6 +29,10 @@ def _tensor(a, dtype=None):
         return None
     t = torch.from_numpy(np.array(np.asarray(a)))
     return t if dtype is None else t.to(dtype)
+
+
+def _torch_dtype(dt):
+    return torch.from_numpy(np.zeros(0, dtype=dt)).dtype
 
 
 def to_torch(obj, _memo=None):
@@ -82,6 +86,8 @@ def to_torch(obj, _memo=None):
             obj.ns, obj.nf, obj.np_, conv(obj.solve_s), conv(obj.solve_fp),
             conv(obj.Pfs), conv(obj.Pps),
         )
+    elif name == "CastPC":
+        out = CastPC(conv(obj.inner), _torch_dtype(obj.out_dtype), _torch_dtype(obj.in_dtype))
     else:
         raise TypeError(f"no port counterpart for {type(obj).__module__}.{name}")
     memo[id(obj)] = out

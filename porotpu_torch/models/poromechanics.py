@@ -8,7 +8,8 @@ the host and moved to ``device`` in one ``.to``.  Each time step is one
 right-preconditioned FGMRES solve.
 
 Ported: the 2-way block preconditioner with the inexact Schur
-fieldsplit or the exact (dense LU) fluid-pressure block, solver types
+fieldsplit or the exact (dense LU) fluid-pressure block, a ``pc dtype``
+below the solve dtype (the PC built at that dtype under ``CastPC``), solver types
 gmres/fgmres (both run flexible GMRES), both RHS modes (``loads-only``
 and the reference drivers' ``full-residual``, whose history products
 run on the device operators ``H_dev``), ``solver chunk`` and
@@ -31,7 +32,7 @@ from ..fem.dofmap import FunctionSpace, MixedSpace, vertex_embedding
 from ..ops.dia import device_matrix
 from ..ops.sparse import FieldMatrix
 from ..precond.amg import rigid_body_modes
-from ..precond.block import BlockPreconditioner
+from ..precond.block import BlockPreconditioner, CastPC
 from ..precond.inner import ITERATED, InnerConfig, build_inner_solver
 from ..precond.schur import build_schur_fieldsplit
 from ..solvers.convergence import FieldwiseTest
@@ -294,11 +295,10 @@ class Poromechanics(AbstractPhysics):
             raise NotImplementedError(
                 f"pc type {self.pc_type!r} (3-way block PC) is not ported yet (ROADMAP M7.1)"
             )
-        if _resolve_dtype(p.get("pc dtype"), dtype) != dtype:
-            raise NotImplementedError(
-                "a 'pc dtype' other than the solve dtype (CastPC) is not ported yet "
-                "(ROADMAP M7.1)"
-            )
+        # "pc dtype" builds the whole PC payload (inner solvers, couplings,
+        # dense factors) at a lower precision than the outer solve; the
+        # apply is then wrapped in CastPC (porotpu/models/poromechanics.py:457-462)
+        pc_dtype = _resolve_dtype(p.get("pc dtype"), dtype)
         if self.assembler.rhs_mode not in ("loads-only", "full-residual"):
             raise ValueError(f"unknown rhs mode {self.assembler.rhs_mode!r}")
         dim = self.mesh.dim
@@ -341,26 +341,30 @@ class Poromechanics(AbstractPhysics):
             dofs_per_node=dim,
             near_nullspace=B_s,
             coords=xyz_s,
-            dtype=dtype,
+            dtype=pc_dtype,
         )
 
         cfg_fp = self._inner_cfg("fp")
         if cfg_fp.method == "lu":
-            solve_fp = self._exact_fp_solve(cfg_fp, _pget)
+            solve_fp = self._exact_fp_solve(cfg_fp, _pget, pc_dtype)
         else:
-            solve_fp = self._schur_fp_solve(_pget, bc_dofs, B_f, xyz_f, xyz_p, emb_pf)
+            solve_fp = self._schur_fp_solve(
+                _pget, bc_dofs, B_f, xyz_f, xyz_p, emb_pf, pc_dtype
+            )
         self.pc = BlockPreconditioner(
             ns_p,
             nf_p,
             np_p,
             solve_s,
             solve_fp,
-            Pfs=device_matrix(_pget("f", "s"), dtype),
-            Pps=device_matrix(_pget("p", "s"), dtype, row_emb=emb_ps),
+            Pfs=device_matrix(_pget("f", "s"), pc_dtype),
+            Pps=device_matrix(_pget("p", "s"), pc_dtype, row_emb=emb_ps),
         )
+        if pc_dtype != dtype:
+            self.pc = CastPC(self.pc, dtype, pc_dtype)
         self.H_dev, self._hist_terms = self._history_operators(emb_ps)
 
-    def _exact_fp_solve(self, cfg_fp, _pget):
+    def _exact_fp_solve(self, cfg_fp, _pget, pc_dtype):
         """The exact operating point: one dense LU of the whole fp block
         (porotpu/models/poromechanics.py:563-573, petsc-options-exact)."""
         _, nf_p, np_p = self.padded_sizes
@@ -374,9 +378,9 @@ class Poromechanics(AbstractPhysics):
             [[_pget("f", "f"), _pget("f", "p")], [_pget("p", "f"), _pget("p", "p")]],
             format="csr",
         )
-        return build_inner_solver(P_fpfp, cfg_fp, dtype=self.dtype)
+        return build_inner_solver(P_fpfp, cfg_fp, dtype=pc_dtype)
 
-    def _schur_fp_solve(self, _pget, bc_dofs, B_f, xyz_f, xyz_p, emb_pf):
+    def _schur_fp_solve(self, _pget, bc_dofs, B_f, xyz_f, xyz_p, emb_pf, pc_dtype):
         """The inexact operating point: the lower Schur fieldsplit with the
         dcc or selfp Schur (porotpu/models/poromechanics.py:530-561, 618-633)."""
         ns_p, nf_p, np_p = self.padded_sizes
@@ -413,7 +417,7 @@ class Poromechanics(AbstractPhysics):
             coords_f=xyz_f,
             coords_p=xyz_p,
             row_emb_pf=emb_pf,
-            dtype=self.dtype,
+            dtype=pc_dtype,
             schur_kind=schur_kind,
             mass_drag_diag=mdiag,
             visc_diag=visc,
@@ -607,11 +611,14 @@ class Poromechanics(AbstractPhysics):
     def pc_timings(self, reps: int = 10) -> dict:
         """Seconds per application of each stage of the 2-way block PC and
         of the whole PC, each timed standalone on a vector of ones
-        (porotpu/models/poromechanics.py:pc_timings)."""
-        pc = self.pc
+        (porotpu/models/poromechanics.py:pc_timings); under CastPC at the
+        PC's own dtype."""
+        pc, dtype = self.pc, self.dtype
+        if isinstance(pc, CastPC):
+            pc, dtype = pc.inner, pc.in_dtype
         return {
             name: self._stage_seconds(
-                fn, torch.ones(n, dtype=self.dtype, device=self.device), reps
+                fn, torch.ones(n, dtype=dtype, device=self.device), reps
             )
             for name, fn, n in (
                 ("solid", pc.solve_s, pc.ns),

@@ -3,8 +3,9 @@
     ys  = solve_s(xs)
     yfp = solve_fp(x_fp - [Pfs ys; Pps ys])
 
-(reference lib/Preconditioner.py:219-241).  The 3-way double sweep and
-the mixed-precision ``CastPC`` wrapper are not ported yet (ROADMAP M7.1).
+(reference lib/Preconditioner.py:219-241).  ``CastPC`` applies a PC
+built at a lower precision inside a higher-precision outer solve.  The
+3-way double sweep is not ported yet (ROADMAP M7.1).
 """
 
 from __future__ import annotations
@@ -28,3 +29,21 @@ class BlockPreconditioner(nn.Module):
         coup = torch.cat([self.Pfs.matvec(ys), self.Pps.matvec(ys)])
         yfp = self.solve_fp(x[ns:] - coup)
         return torch.cat([ys, yfp])
+
+
+class CastPC(nn.Module):
+    """Mixed-precision wrapper (porotpu/precond/block.py:122-150): the input
+    is cast to the PC's dtype ``in_dtype``, the wrapped PC applied, and the
+    result cast back to the outer solve's dtype ``out_dtype``.  With right
+    preconditioning the PC only maps residuals to search directions, so
+    its precision moves the iteration count, never the accuracy FGMRES
+    reaches on the true residual."""
+
+    def __init__(self, inner, out_dtype: torch.dtype, in_dtype: torch.dtype):
+        super().__init__()
+        self.inner = inner
+        self.out_dtype = out_dtype
+        self.in_dtype = in_dtype
+
+    def forward(self, x):
+        return self.inner(x.to(self.in_dtype)).to(self.out_dtype)

@@ -72,6 +72,39 @@ def test_apply_matches_porotpu_f64(part, source, builds, jax_applies):
     assert err <= 1e-10, err
 
 
+@pytest.fixture(scope="module")
+def cast_builds():
+    """The same configuration with the PC built in f32 under an f64 solve."""
+    over = dict(OVERRIDES, **{"pc dtype": "float32"})
+    jp = jbench.swelling_3d(3, overrides=over)
+    jp._build_operators()
+    p = swelling_3d(3, overrides=over, device="cpu")
+    p._build_operators()
+    return jp, p
+
+
+@pytest.mark.parametrize("source", ["converted", "own_build"])
+def test_cast_pc_apply_matches_porotpu(source, cast_builds):
+    """CastPC: f64 in and out, an f32 payload.  Both sides round the same
+    f32 V-cycles in another summation order, which the cycle amplifies
+    by the blocks' conditioning: 1e-5 relative (f32's epsilon is 1.2e-7)."""
+    jp, p = cast_builds
+    assert type(jp.pc).__name__ == "CastPC"
+    pc = to_torch(jp.pc) if source == "converted" else p.pc
+    assert type(pc).__name__ == "CastPC"
+    assert (pc.out_dtype, pc.in_dtype) == (torch.float64, torch.float32)
+    floats = [b.dtype for b in pc.buffers() if b.is_floating_point()]
+    assert floats and set(floats) == {torch.float32}
+    x = np.random.default_rng(22).normal(size=sum(jp.padded_sizes))
+    want = np.asarray(jax.jit(lambda o, v: o(v))(jp.pc, jnp.asarray(x)))
+    assert want.dtype == np.float64
+    with torch.inference_mode():
+        got = pc(torch.from_numpy(x))
+    assert got.dtype == torch.float64
+    err = np.abs(got.numpy() - want).max() / np.abs(want).max()
+    assert np.isfinite(got.numpy()).all() and err <= 1e-5, err
+
+
 def _desc(op):
     """Storage description of an operator: class, shape, offsets, ne."""
     name = type(op).__name__
