@@ -6,7 +6,10 @@
 1. Prints the card (nvidia-smi name and power limit), nvcc and torch
    versions, and builds every kernel (porotpu_torch/csrc/*.cu, one nvcc
    per source, all together) from the checkout, printing the build time
-   and ptxas's register report.
+   and ptxas's register report.  Then the stream peak measured on the
+   card in f32 and f64 (utils/roofline.py: a chained triad over 256 MB
+   arrays); every bound share below is printed against the data sheet's
+   3.35 TB/s and against this measured peak.
 2. Main path, K1: swelling-3d N=13 with the bench.py overrides (120,842
    dofs, pad multiple 128, f32, loads-only), one time step through
    ``problem.solve()``: FGMRES + the 2-way block preconditioner with AMG.
@@ -27,6 +30,12 @@
    payload, its transposes on dataT), K2 in f64 (the operator's
    Transposed pressure rows) and never in f32; no plain product.  Three
    timed solves.
+3c. bench.py's f64-IR datapoint through porotpu_torch/tools/bench.py:
+   f32 solves (phase 2's problem) against the f64 true residual of phase
+   3b's operator, 1-4 passes, ending with the field-wise test met in f64
+   (atol 1e-8 / rtol 1e-6); no plain product.  Then bench.py's roofline
+   line: the SpMV rate of the N=13 block operator in f32 and f64 against
+   the measured peak and the data sheet.
 4. K1 against its plain version on the offset sets of the built N=13
    operators (the 233-band level-0 A, the 681-band level-1 A, an embedded
    coupling block and a restriction through dataT on negated offsets), in
@@ -249,7 +258,7 @@ def banded_transposes(ops):
     return [m for m in cands if type(m).__name__ == "DIA"]
 
 
-def time_heaviest_ell(ops, ell, dev, torch, mb):
+def time_heaviest_ell(ops, ell, dev, torch, mb, peaks):
     """Cold and warm time of the ELL product of each kind (gather matvec,
     index_add rmatvec) that took the most of a solve's ELL work (products
     x rows x width), beside the bytes it must move."""
@@ -265,17 +274,18 @@ def time_heaviest_ell(ops, ell, dev, torch, mb):
         x = torch.randn(n_in, dtype=op.data.dtype, device=dev)
         nbytes = (n * width * (op.data.element_size() + op.cols.element_size())
                   + (n_in + n_out) * op.data.element_size())
-        b_ms, b_by = mb.bound(nbytes, 2 * n * width, op.data.dtype)
+        b_ms, _ = mb.bound(nbytes, 2 * n * width, op.data.dtype)
         run = getattr(op, product)
         ms, warm = mb.cold_ms(lambda: run(x), 30), mb.cuda_ms(lambda: run(x), 50)
+        share = mb.shares(ms, nbytes, 2 * n * width, op.data.dtype, peaks[op.data.dtype])
         print(f"heaviest ELL {product} ({n} rows x {width}, {ell[key]} products in the solve): "
-              f"cold {ms:.4f} ms ({100 * b_ms / ms:.1f}% of the {b_by} bound {b_ms:.4f} ms), "
+              f"cold {ms:.4f} ms ({share}), "
               f"warm {warm:.4f} ms; x (cold - bound) over the solve "
               f"{ell[key] * (ms - b_ms):.1f} ms", flush=True)
 
 
 def driver_run(label, drv, argv, dofs, oracle, k2, dev, torch, dia_kernel, ell_products,
-               FieldwiseTest, mb):
+               FieldwiseTest, mb, peaks):
     """One driver run on the card: ``setup(argv)``, then ``solve()`` with the
     counts reset just before and read just after, then ``print_timings()``.
     Checks the dofs, the true-residual guard at the problem's own
@@ -351,7 +361,7 @@ def driver_run(label, drv, argv, dofs, oracle, k2, dev, torch, dia_kernel, ell_p
     else:
         check(not transposes, f"{label}: {len(transposes)} banded transposes, none expected")
         check(counts["dia_rmv"] == 0, f"{label}: K2 launched with no banded transpose")
-    time_heaviest_ell(ops, ell, dev, torch, mb)
+    time_heaviest_ell(ops, ell, dev, torch, mb, peaks)
 
     # the sets to hold: the heaviest of each kernel over all launches, and
     # the heaviest scalar-path sets, each on the path the run took it
@@ -380,7 +390,7 @@ def driver_run(label, drv, argv, dofs, oracle, k2, dev, torch, dia_kernel, ell_p
     return out
 
 
-def hold_set(key, offs, ne, vec, dev, torch, dia_kernel, mb, rng):
+def hold_set(key, offs, ne, vec, dev, torch, dia_kernel, mb, rng, peaks):
     """Hold a driver run's set (kernel, dtype, nd, nrows; its offsets and
     ne) against its plain version on random data at its shape, on the path
     the run took it: the vector path on an aligned input, the masked scalar
@@ -414,12 +424,12 @@ def hold_set(key, offs, ne, vec, dev, torch, dia_kernel, mb, rng):
     check(rel <= 1e-12, f"{key} disagrees with its plain version on the {path} ({rel:.2e})")
     xc = x.contiguous()
     entries = mb.band_entries(offs, nrows, ne)
-    b_ms, b_by = mb.bound((entries + n_in + n_out) * dtype.itemsize, 2 * entries, dtype)
+    nbytes = (entries + n_in + n_out) * dtype.itemsize
     ms, warm = mb.cold_ms(run, 30), mb.cuda_ms(run, 50)
     lib, lib_warm = mb.cold_ms(lambda: A @ xc, 30), mb.cuda_ms(lambda: A @ xc, 50)
     print(f"  {kernel} {dt} nd={nd} nrows={nrows} ne={ne} ({path}, cluster {plan.cluster}): "
-          f"err {rel:.2e}; cold {ms:.4f} ms ({100 * b_ms / ms:.1f}% of the {b_by} bound "
-          f"{b_ms:.4f} ms), warm {warm:.4f} ms; cuSPARSE cold {lib:.4f} warm {lib_warm:.4f} ms",
+          f"err {rel:.2e}; cold {ms:.4f} ms ({mb.shares(ms, nbytes, 2 * entries, dtype, peaks[dtype])}), "
+          f"warm {warm:.4f} ms; cuSPARSE cold {lib:.4f} warm {lib_warm:.4f} ms",
           flush=True)
     return ms
 
@@ -437,7 +447,9 @@ def main():
     from porotpu_torch.ops import dia_kernel
     from porotpu_torch.ops.dia import transpose_layout
     from porotpu_torch.solvers.convergence import FieldwiseTest
+    from porotpu_torch.tools import bench
     from porotpu_torch.tools import dia_microbench as mb
+    from porotpu_torch.utils.roofline import stream_peak
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -463,7 +475,10 @@ def main():
     for line in ptxas.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.split("ptxas info")[-1].strip(" :"))
-    sys.stdout.flush()
+    peaks = {dt: stream_peak(dt, device=dev) for dt in (torch.float32, torch.float64)}
+    print(f"measured stream peak (chained triad y = s x + y over 256 MB arrays, R2-R1 delta): "
+          f"f32 {peaks[torch.float32]:.1f} GB/s, f64 {peaks[torch.float64]:.1f} GB/s; "
+          f"data sheet {mb.HBM_BYTES_PER_S / 1e9:.0f} GB/s", flush=True)
 
     # -- 2. main path, K1: swelling-3d N=13 f32, one step ------------------
     f32 = swelling_3d(13, overrides=dict(BENCH_OVERRIDES), device=dev)
@@ -477,9 +492,6 @@ def main():
     check(counts32["plain"] == 0, f"{counts32['plain']} banded products took a plain version")
     sets1 = k1_sets(f32)
     sets2 = {("f32", k): v for k, v in k2_sets(f32).items()}
-    del f32  # the problem's solve closure holds a cycle: collect it
-    gc.collect()
-    torch.cuda.empty_cache()
     print(f"device memory allocated before the f64 path: "
           f"{torch.cuda.memory_allocated(dev) / 2**20:.1f} MiB")
 
@@ -517,6 +529,31 @@ def main():
           "CastPC: K2 ran in f32, where transposes read dataT")
     check(counts_c["plain"] == 0, f"CastPC: {counts_c['plain']} plain products")
 
+    # -- 3c. f64 accuracy from f32 solves: bench.py's f64-IR datapoint -------
+    print("-- f64-IR: f32 solves against the f64 true residual", flush=True)
+    dia_kernel.reset_counts()
+    ir = bench.run_bench_ir(f32, cast)
+    counts_ir = dict(dia_kernel.COUNTS)
+    first = ir["first"]
+    print(f"IR: {first['passes']} passes, f32 iterations {first['f32_iters']}, true-f64 "
+          f"fieldwise abs={first['abs']:.3e} rel={first['rel']:.3e} (BENCH_r05: 1 pass, 9 "
+          f"iterations, abs 7.223e-09); timed runs (s): "
+          + ", ".join(f"{t:.5f}" for t in ir["times_s"])
+          + f", {ir['passes']} passes, {ir['iters']} iterations; counts "
+          + ", ".join(f"{k}={v}" for k, v in counts_ir.items()), flush=True)
+    check(1 <= first["passes"] <= bench.IR_PASSES and 1 <= ir["passes"] <= bench.IR_PASSES,
+          "IR took no pass or more than its passes")
+    check(ir["guard_abs"] <= bench.IR_ATOL or ir["guard_rel"] <= bench.IR_RTOL,
+          "IR's timed run missed the f64 tolerance")
+    check(counts_ir["dia_mv"] > 0 and counts_ir["plain"] == 0,
+          f"IR: K1 {counts_ir['dia_mv']} launches, {counts_ir['plain']} plain products")
+    for label, prob in (("float32", f32), ("float64", cast)):
+        roof = bench.spmv_roofline(prob.A_dev, prob.get_rhs(prob.t), peaks[prob.dtype])
+        print(bench.roofline_line(f"N=13 block operator, {label}", roof), flush=True)
+    del f32, cast  # the problems' solve closures hold cycles: collect them
+    gc.collect()
+    torch.cuda.empty_cache()
+
     rng = np.random.default_rng(0)
     dtypes = {"f32": (torch.float32, 1e-5), "f64": (torch.float64, 1e-12)}
     path_launches = {"f32": launches32, "f64": launches64}
@@ -544,15 +581,16 @@ def main():
             warm_ms=mb.cuda_ms(run, 50), ms=mb.cold_ms(run, 30),
             library_warm_ms=mb.cuda_ms(lib, 50), library_ms=mb.cold_ms(lib, 30),
             plain_ms=mb.cuda_ms(plain, 10), bound_ms=b_ms, bound_by=b_by, nbytes=nbytes,
-            launches=path_launches[tag].get(key, 0),
+            flops=2 * entries, dtype=dtype, launches=path_launches[tag].get(key, 0),
         )
         record[kernel, name, tag] = rec
         return rec
 
     def report(label, rec, rel, extra=""):
+        share = mb.shares(rec["ms"], rec["nbytes"], rec["flops"], rec["dtype"],
+                          peaks[rec["dtype"]])
         print(f"{label}: err {rel:.2e}; cold {rec['ms']:.4f} ms "
-              f"({100 * rec['bound_ms'] / rec['ms']:.1f}% of the {rec['bound_by']} bound "
-              f"{rec['bound_ms']:.4f} ms, {rec['nbytes'] / 1e6:.1f} MB), "
+              f"({share}, {rec['nbytes'] / 1e6:.1f} MB), "
               f"warm {rec['warm_ms']:.4f} ms; "
               f"cuSPARSE cold {rec['library_ms']:.4f} warm {rec['library_warm_ms']:.4f} ms; "
               f"plain {rec['plain_ms']:.4f} ms; {rec['launches']} launches in the step, "
@@ -657,7 +695,7 @@ def main():
     held, mismatches = [], []
     for label, drv, argv, dofs, oracle, k2 in DRIVER_RUNS:
         out = driver_run(label, drivers_by_name[drv], argv, dofs, oracle, k2, dev, torch,
-                         dia_kernel, ELL_PRODUCTS, FieldwiseTest, mb)
+                         dia_kernel, ELL_PRODUCTS, FieldwiseTest, mb, peaks)
         if label == "swelling_exact":
             pc = out["problem"].pc
             check(pc.solve_s.kind == "lu" and pc.solve_fp.kind == "lu",
@@ -672,7 +710,7 @@ def main():
           "(random data at their shapes and offsets)")
     for label, key, offs, ne, vec, n_path in held:
         print(f" {label}, {n_path} launches of this set on this path in the solve:")
-        hold_set(key, offs, ne, vec, dev, torch, dia_kernel, mb, rng)
+        hold_set(key, offs, ne, vec, dev, torch, dia_kernel, mb, rng, peaks)
 
     # -- 9. the drivers' defaults: card against CPU ---------------------------
     dflt = {}

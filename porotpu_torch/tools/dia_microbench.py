@@ -20,7 +20,9 @@ a chain of steps in which y / (1 + max|y|) is written back into the input
 routes take turns (K3, K1, cuSPARSE, cuSPARSE, K1, K3) and each keeps the
 faster of its two turns.  The
 bound is the bytes the product must move (data, input and output, each
-once) over the H100's 3.35 TB/s.
+once) over the H100's 3.35 TB/s (data sheet), and again over the f32
+stream peak measured on the card (``utils/roofline.stream_peak``): each
+share is printed against both.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 
 from ..ops import dia_kernel
+from ..utils.roofline import stream_peak
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, and the peak rates outside the
 # tensor cores (the banded products do one multiply-add per stored value)
@@ -44,13 +47,23 @@ STEPS = 20
 FLUSH_BYTES = 100 * 2**20
 
 
-def bound(nbytes, flops, dtype):
+def bound(nbytes, flops, dtype, bytes_per_s=HBM_BYTES_PER_S):
     """(ms, "bytes" or "operations"): the least time the H100 could take to
-    move ``nbytes`` and do ``flops`` of ``dtype``, and which of the two
-    bounds it."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    move ``nbytes`` at ``bytes_per_s`` (the data sheet's rate unless given)
+    and do ``flops`` of ``dtype``, and which of the two bounds it."""
+    t_bytes = nbytes / bytes_per_s * 1e3
     t_ops = flops / PEAK_FLOP_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def shares(ms, nbytes, flops, dtype, peak_gbps):
+    """A time's share of its bound, against the data sheet and against the
+    stream peak ``peak_gbps`` measured on this card (utils/roofline.py)."""
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    m_ms, m_by = bound(nbytes, flops, dtype, peak_gbps * 1e9)
+    return (f"{100 * b_ms / ms:.1f}% of the {b_by} bound {b_ms:.4f} ms (data sheet), "
+            f"{100 * m_ms / ms:.1f}% of the {m_by} bound {m_ms:.4f} ms (measured peak "
+            f"{peak_gbps:.0f} GB/s)")
 
 
 def band_entries(offsets, nrows, ncols):
@@ -209,6 +222,10 @@ def run(n=98304, nd=233):
             "share": b_ms / ms,
         }
     out["plain_ms"] = cuda_ms(lambda: dia_kernel.dia_mv_padded_ref(data, offsets, xpad), 5)
+    out["stream_peak_gbps"] = stream_peak(torch.float32, device=dev)
+    for k in routes:
+        out[k]["flops"] = 2 * (nd * n if k == "k3" else entries)
+        out[k]["nbytes"] = nbytes[k]
     return out
 
 
@@ -222,8 +239,8 @@ def report(rec):
         r = rec[k]
         turns = "/".join(f"{t:.4f}" for t in r["turns_ms"])
         print(f"  {name}: {r['ms']:.4f} ms per launch (turns {turns}) = {r['gbps']:.0f} GB/s "
-              f"= {100 * r['share']:.1f}% of the {r['bound_by']} bound ({r['bound_ms']:.4f} ms); "
-              f"chained step {r['chain_ms']:.4f} ms")
+              f"= {shares(r['ms'], r['nbytes'], r['flops'], torch.float32, rec['stream_peak_gbps'])}"
+              f"; chained step {r['chain_ms']:.4f} ms")
     print(f"  plain version of K3 (unfold): {rec['plain_ms']:.4f} ms", flush=True)
 
 

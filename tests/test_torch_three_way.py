@@ -5,15 +5,21 @@ same problem on the CPU.
 
 - CastPC: swelling-3d N=3 with the bench overrides, f64 outer solve and
   the PC built in f32 (``pc dtype`` float32, bench.py's f64 datapoint).
+- f64-IR (``porotpu_torch/tools/bench.py:refine``): f32 solves against the
+  f64 true residual at N=3, and the roofline helpers' operator size.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 from porotpu.models import benchmarks as jbench
 from porotpu_torch.models.benchmarks import BENCH_OVERRIDES, swelling_3d
 from porotpu_torch.solvers.convergence import FieldwiseTest
+from porotpu_torch.tools import bench
+from porotpu_torch.utils import roofline
 
 torch.set_num_threads(1)
 
@@ -56,3 +62,42 @@ def test_cast_pc_slice_matches_porotpu():
     fw = FieldwiseTest.from_sizes(p.padded_sizes, torch.from_numpy(jb))
     ea, er = fw.errors(torch.from_numpy(jres))
     assert float(ea) < 1e-7 or float(er) < 1e-5
+
+
+def test_refinement_reaches_f64_from_f32_solves():
+    """bench.py's f64-IR datapoint at N=3: the first pass takes porotpu's
+    f32 iteration count on the same right-hand side, and the loop ends
+    with the field-wise test met in f64 at atol 1e-8 / rtol 1e-6 within
+    its 4 passes."""
+    p32 = bench.build_problem("float32", 3, device="cpu")
+    p64 = bench.build_problem("float64", 3, pc_dtype="float32", device="cpu")
+    for p in (p32, p64):
+        p.create_solver()
+        p.first_timestep = False
+    b64 = p64.get_rhs(p64.t0 + p64.dt)
+    x, info = bench.refine(p32, p64.A_dev, b64, p64.padded_sizes)
+    assert 1 <= info["passes"] <= bench.IR_PASSES
+    assert info["abs"] <= bench.IR_ATOL or info["rel"] <= bench.IR_RTOL
+    assert x.dtype == torch.float64
+    ea, er = bench.guard(p64, b64, x)
+    assert (ea, er) == (info["abs"], info["rel"])
+
+    jp = jbench.swelling_3d(3, overrides=dict(BENCH_OVERRIDES))
+    jp.create_solver()
+    b32 = jnp.asarray(b64.numpy().astype(np.float32))
+    jres = jp._jit_solve(jp.A_dev, jp.pc, b32, jnp.zeros_like(b32))
+    assert info["f32_iters"][0] == int(jres.iters)
+
+
+def test_roofline_counts_porotpus_padded_values_and_needs_the_card():
+    p = swelling_3d(2, overrides=dict(BENCH_OVERRIDES), device="cpu")
+    p.create_solver()
+    jp = jbench.swelling_3d(2, overrides=dict(BENCH_OVERRIDES))
+    jp.create_solver()
+    assert roofline.padded_values(p.A_dev) == sum(
+        int(e.nnz_padded) for e in jp.A_dev.blocks.values()
+    )
+    with pytest.raises(RuntimeError, match="not a CUDA card"):
+        roofline.stream_peak(torch.float32, mb=1, device="cpu")
+    with pytest.raises(RuntimeError, match="not a CUDA card"):
+        roofline.op_stream_time(p.A_dev, torch.ones(sum(p.padded_sizes)))
