@@ -80,6 +80,12 @@
    masked scalar) the run took them, and its heaviest scalar-path sets
    are held against the plain version at 1e-12 on random data at their
    shapes and offsets and timed cold against their bound and cuSPARSE.
+   The 3-way block PC through the same drivers, with the command lines of
+   paper-scripts/robustness_2d.sh and porotpu's first-step counts
+   (output/SUMMARY.md): swelling N=80 ``diagonal 3-way`` inexact (6
+   iterations), swelling N=20 exact (11; s/f/p/diff solves all dense LU)
+   and footing N=20 ``undrained 3-way`` inexact (31,520 dofs, 248), each
+   with the same checks and held sets; each must launch K2.
 9. The drivers' defaults (full-residual RHS, cg+amg inner solves):
    swelling N=6 over three steps on the card and with ``--device cpu``
    must take the same iterations at every step and agree to 1e-10.
@@ -112,6 +118,20 @@ DRIVER_RUNS = (
      126691, [35], False),
     ("swelling_exact", "swelling",
      ["-N", "20", "--petsc-options", "petsc-options-exact"], 7165, [8], True),
+    # the 3-way block PC (paper-scripts/robustness_2d.sh's command lines)
+    ("swelling_3way_inexact", "swelling",
+     ["-N", "80", "--petsc-options", "petsc-options-inexact", "--pc-type", "diagonal 3-way"],
+     110245, [6], True),
+    ("swelling_3way_exact", "swelling",
+     ["-N", "20", "--petsc-options", "petsc-options-exact", "--pc-type", "diagonal 3-way"],
+     7165, [11], True),
+    # footing: its outer couplings and fluid levels store ELL, as in the
+    # 2-way runs, but the pressure and diffusion AMGs keep banded
+    # prolongators (143 x 1884, 444 and 445 x 400), as porotpu's
+    # device_matrix picks them: their restrictions run K2
+    ("footing_3way_inexact", "footing",
+     ["-N", "20", "--petsc-options", "petsc-options-inexact", "--pc-type", "undrained 3-way"],
+     31520, [248], True),
 )
 # phase 3b: bench.py's f64 datapoint, the PC built in f32 under CastPC
 CAST_PC = {"dtype": "float64", "pc dtype": "float32"}
@@ -696,10 +716,15 @@ def main():
     for label, drv, argv, dofs, oracle, k2 in DRIVER_RUNS:
         out = driver_run(label, drivers_by_name[drv], argv, dofs, oracle, k2, dev, torch,
                          dia_kernel, ELL_PRODUCTS, FieldwiseTest, mb, peaks)
+        pc = out["problem"].pc
         if label == "swelling_exact":
-            pc = out["problem"].pc
             check(pc.solve_s.kind == "lu" and pc.solve_fp.kind == "lu",
                   "petsc-options-exact did not build dense-LU solid and fp solves")
+        if label == "swelling_3way_exact":
+            kinds = [s.kind for s in (pc.solve_s, pc.solve_f, pc.solve_p, pc.solve_diff)]
+            check(kinds == ["lu"] * 4, f"3-way petsc-options-exact built inner kinds {kinds}")
+        check(pc.three_way == ("3way" in label), f"{label}: three_way is {pc.three_way}")
+        del pc
         held += [(label, *h) for h in out["held"]]
         if out["iterations"] != oracle:
             mismatches.append(f"{label}: {out['iterations']} iterations, porotpu took {oracle}")

@@ -2,9 +2,10 @@
 
 ``to_torch(obj)`` rebuilds a porotpu operator or preconditioner tree —
 FieldMatrix, DIA (with dataT, col_emb, ne), Transposed, Dense, ELL, AMG,
-InnerSolver, SchurFieldsplit, the 2-way BlockPreconditioner and CastPC — from
-``np.asarray`` of its array leaves.  Classes are recognized by name, so
-this module imports no jax; the caller passes objects it already has.
+InnerSolver, SchurFieldsplit, the 2-way and 3-way BlockPreconditioner and
+CastPC — from ``np.asarray`` of its array leaves.  Classes are recognized
+by name, so this module imports no jax; the caller passes objects it
+already has.
 
 Tests use it to tell the two halves of the port apart: an apply that
 disagrees on converted objects is an apply fault, one that agrees there
@@ -80,11 +81,14 @@ def to_torch(obj, _memo=None):
             obj.nf, conv(obj.solve_f), conv(obj.solve_S), conv(obj.Apf)
         )
     elif name == "BlockPreconditioner":
-        if obj.three_way:
-            raise NotImplementedError("the 3-way block PC is not ported yet (ROADMAP M7.1)")
+        opt = lambda o: None if o is None else conv(o)  # noqa: E731
         out = BlockPreconditioner(
-            obj.ns, obj.nf, obj.np_, conv(obj.solve_s), conv(obj.solve_fp),
-            conv(obj.Pfs), conv(obj.Pps),
+            obj.ns, obj.nf, obj.np_, conv(obj.solve_s), opt(obj.solve_fp),
+            opt(obj.Pfs), opt(obj.Pps), three_way=obj.three_way,
+            solve_f=opt(obj.solve_f), solve_p=opt(obj.solve_p),
+            solve_diff=opt(obj.solve_diff), Pfp=opt(obj.Pfp), Psf=opt(obj.Psf),
+            Psp=opt(obj.Psp), diff_rhs_mask=_tensor(obj.diff_rhs_mask),
+            w1=obj.w1, w2=obj.w2,
         )
     elif name == "CastPC":
         out = CastPC(conv(obj.inner), _torch_dtype(obj.out_dtype), _torch_dtype(obj.in_dtype))

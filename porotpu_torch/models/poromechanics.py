@@ -8,7 +8,8 @@ the host and moved to ``device`` in one ``.to``.  Each time step is one
 right-preconditioned FGMRES solve.
 
 Ported: the 2-way block preconditioner with the inexact Schur
-fieldsplit or the exact (dense LU) fluid-pressure block, a ``pc dtype``
+fieldsplit or the exact (dense LU) fluid-pressure block, the 3-way block
+preconditioner (its pressure-diffusion block ``P_diff``), a ``pc dtype``
 below the solve dtype (the PC built at that dtype under ``CastPC``), solver types
 gmres/fgmres (both run flexible GMRES), both RHS modes (``loads-only``
 and the reference drivers' ``full-residual``, whose history products
@@ -169,10 +170,13 @@ class Poromechanics(AbstractPhysics):
 
     def _bc_applied_blocks(self):
         """Per-block BC row surgery + padding.  Copy of
-        porotpu/models/poromechanics.py:246-312 (2-way: no P_diff).
+        porotpu/models/poromechanics.py:246-312.
 
-        Returns (A_blocks, P_blocks, (bc_dofs, bc_vals)): dicts keyed
-        (row_field, col_field) of padded CSRs, bc data in padded numbering.
+        Returns (A_blocks, P_blocks, P_diff_pp, (bc_dofs, bc_vals)): dicts
+        keyed (row_field, col_field) of padded CSRs; the 3-way PC's padded
+        pressure-diffusion block, its rows zeroed with a unit diagonal at
+        the pressure dofs of ``bcs`` and ``bcs_diff`` (None for 2-way); bc
+        data in padded numbering.
         """
         if self.assembler.A_blocks is None:
             self.assembler.assemble()
@@ -208,7 +212,15 @@ class Poromechanics(AbstractPhysics):
 
         Ab = bc_pad(self.assembler.A_blocks)
         Pb = bc_pad(self.assembler.P_blocks)
-        return Ab, Pb, (self.pad_index[bc_dofs], bc_vals)
+
+        Pd = self.assembler.P_diff_pp
+        if self.three_way and Pd is not None:
+            p_rows = [bc.local_dofs for bc in self.bcs + self.bcs_diff if bc.field == "p"]
+            rows = np.unique(np.concatenate(p_rows)) if p_rows else np.zeros(0, np.int64)
+            Pd = self._pad_field_square(
+                zero_rows(Pd.tocsr(), rows, unit_diag=True), self.np_p
+            )
+        return Ab, Pb, Pd, (self.pad_index[bc_dofs], bc_vals)
 
     def _inner_cfg(self, block: str) -> InnerConfig:
         """Inner solver config for one block, with options-DB override
@@ -286,15 +298,12 @@ class Poromechanics(AbstractPhysics):
         log("---- [Solver] Solver created in {}s".format(self.t_setup))
 
     def _build_operators(self):
-        """The 2-way branches of porotpu/models/poromechanics.py:453-709."""
+        """porotpu/models/poromechanics.py:453-709 without the quasi-exact
+        fgmres+fs fp solve (ROADMAP M7.2)."""
         W = self.W
         ns_p, nf_p, np_p = self.padded_sizes
         dtype = self.dtype
         p = self.parameters
-        if self.three_way:
-            raise NotImplementedError(
-                f"pc type {self.pc_type!r} (3-way block PC) is not ported yet (ROADMAP M7.1)"
-            )
         # "pc dtype" builds the whole PC payload (inner solvers, couplings,
         # dense factors) at a lower precision than the outer solve; the
         # apply is then wrapped in CastPC (porotpu/models/poromechanics.py:457-462)
@@ -303,7 +312,7 @@ class Poromechanics(AbstractPhysics):
             raise ValueError(f"unknown rhs mode {self.assembler.rhs_mode!r}")
         dim = self.mesh.dim
 
-        Ab, Pb, (bc_dofs, bc_vals) = self._bc_applied_blocks()
+        Ab, Pb, Pd_pp, (bc_dofs, bc_vals) = self._bc_applied_blocks()
         self.bc_dofs = torch.as_tensor(bc_dofs, dtype=torch.int64)
         self.bc_vals = torch.as_tensor(bc_vals, dtype=dtype)
         psz = {"s": ns_p, "f": nf_p, "p": np_p}
@@ -344,25 +353,71 @@ class Poromechanics(AbstractPhysics):
             dtype=pc_dtype,
         )
 
-        cfg_fp = self._inner_cfg("fp")
-        if cfg_fp.method == "lu":
-            solve_fp = self._exact_fp_solve(cfg_fp, _pget, pc_dtype)
-        else:
-            solve_fp = self._schur_fp_solve(
-                _pget, bc_dofs, B_f, xyz_f, xyz_p, emb_pf, pc_dtype
+        if self.three_way:
+            self.pc = self._three_way_pc(
+                solve_s, _pget, Pd_pp, B_f, xyz_f, xyz_p, emb_pf, emb_ps, pc_dtype
             )
-        self.pc = BlockPreconditioner(
+        else:
+            cfg_fp = self._inner_cfg("fp")
+            if cfg_fp.method == "lu":
+                solve_fp = self._exact_fp_solve(cfg_fp, _pget, pc_dtype)
+            else:
+                solve_fp = self._schur_fp_solve(
+                    _pget, bc_dofs, B_f, xyz_f, xyz_p, emb_pf, pc_dtype
+                )
+            self.pc = BlockPreconditioner(
+                ns_p,
+                nf_p,
+                np_p,
+                solve_s,
+                solve_fp,
+                Pfs=device_matrix(_pget("f", "s"), pc_dtype),
+                Pps=device_matrix(_pget("p", "s"), pc_dtype, row_emb=emb_ps),
+            )
+        if pc_dtype != dtype:
+            self.pc = CastPC(self.pc, dtype, pc_dtype)
+        self.H_dev, self._hist_terms = self._history_operators(emb_ps)
+
+    def _three_way_pc(self, solve_s, _pget, Pd_pp, B_f, xyz_f, xyz_p, emb_pf, emb_ps,
+                      pc_dtype):
+        """The 3-way block PC (porotpu/models/poromechanics.py:646-680): the
+        fluid, pressure and pressure-diffusion inner solves, the couplings
+        Mf_p, Ms_f and Ms_p, and the diffusion RHS mask, zero at the
+        pressure dofs of ``bcs_diff``."""
+        ns_p, nf_p, np_p = self.padded_sizes
+        solve_f = build_inner_solver(
+            _pget("f", "f"),
+            self._inner_cfg("f"),
+            dofs_per_node=self.mesh.dim,
+            near_nullspace=B_f,
+            coords=xyz_f,
+            dtype=pc_dtype,
+        )
+        solve_p = build_inner_solver(
+            _pget("p", "p"), self._inner_cfg("p"), coords=xyz_p, dtype=pc_dtype
+        )
+        solve_diff = build_inner_solver(
+            Pd_pp, self._inner_cfg("diff"), coords=xyz_p, dtype=pc_dtype
+        )
+        mask = np.ones(np_p)
+        mask[self.bcs_sub_pressure] = 0.0
+        p = self.parameters
+        return BlockPreconditioner(
             ns_p,
             nf_p,
             np_p,
             solve_s,
-            solve_fp,
-            Pfs=device_matrix(_pget("f", "s"), pc_dtype),
-            Pps=device_matrix(_pget("p", "s"), pc_dtype, row_emb=emb_ps),
+            three_way=True,
+            solve_f=solve_f,
+            solve_p=solve_p,
+            solve_diff=solve_diff,
+            Pfp=device_matrix(_pget("f", "p"), pc_dtype, col_emb=emb_pf),
+            Psf=device_matrix(_pget("s", "f"), pc_dtype),
+            Psp=device_matrix(_pget("s", "p"), pc_dtype, col_emb=emb_ps),
+            diff_rhs_mask=torch.as_tensor(mask, dtype=pc_dtype),
+            w1=float(p.get("w1", 1.0)),
+            w2=float(p.get("w2", 0.1)),
         )
-        if pc_dtype != dtype:
-            self.pc = CastPC(self.pc, dtype, pc_dtype)
-        self.H_dev, self._hist_terms = self._history_operators(emb_ps)
 
     def _exact_fp_solve(self, cfg_fp, _pget, pc_dtype):
         """The exact operating point: one dense LU of the whole fp block
@@ -609,23 +664,31 @@ class Poromechanics(AbstractPhysics):
             return start.elapsed_time(end) / 1e3 / reps
 
     def pc_timings(self, reps: int = 10) -> dict:
-        """Seconds per application of each stage of the 2-way block PC and
-        of the whole PC, each timed standalone on a vector of ones
-        (porotpu/models/poromechanics.py:pc_timings); under CastPC at the
-        PC's own dtype."""
+        """Seconds per application of each stage of the block PC and of the
+        whole PC, each timed standalone on a vector of ones
+        (porotpu/models/poromechanics.py:977-1041); under CastPC at the
+        PC's own dtype.  A 3-way apply solves the solid and the fluid twice
+        and the pressure and the diffusion once each."""
         pc, dtype = self.pc, self.dtype
         if isinstance(pc, CastPC):
             pc, dtype = pc.inner, pc.in_dtype
-        return {
-            name: self._stage_seconds(
-                fn, torch.ones(n, dtype=dtype, device=self.device), reps
-            )
-            for name, fn, n in (
-                ("solid", pc.solve_s, pc.ns),
-                ("fluid-pressure", pc.solve_fp, pc.nf + pc.np_),
-                ("total", pc, pc.ns + pc.nf + pc.np_),
-            )
-        }
+
+        def sec(fn, n):
+            return self._stage_seconds(fn, torch.ones(n, dtype=dtype, device=self.device), reps)
+
+        if pc.three_way:
+            out = {
+                "solid": 2 * sec(pc.solve_s, pc.ns),
+                "fluid": 2 * sec(pc.solve_f, pc.nf),
+                "pressure": sec(pc.solve_p, pc.np_) + sec(pc.solve_diff, pc.np_),
+            }
+        else:
+            out = {
+                "solid": sec(pc.solve_s, pc.ns),
+                "fluid-pressure": sec(pc.solve_fp, pc.nf + pc.np_),
+            }
+        out["total"] = sec(pc, pc.ns + pc.nf + pc.np_)
+        return out
 
     def print_timings(self):
         """The solver's total time and the PC's stage breakdown, in the
@@ -641,12 +704,9 @@ class Poromechanics(AbstractPhysics):
             "\n===== Timing preconditioner: {:.3f}s ({} applications; "
             "stages timed standalone, rescaled to the total)".format(st["total"] * napp, napp)
         )
-        ssum = st["solid"] + st["fluid-pressure"]
+        stages = [k for k in st if k != "total"]
+        ssum = sum(st[k] for k in stages)
         scale = (st["total"] / ssum) if ssum > 0 else 1.0
-        log(
-            "\tSolid solver: {:.3f}s"
-            "\n\tFluid-pressure solver: {:.3f}s".format(
-                st["solid"] * scale * napp,
-                st["fluid-pressure"] * scale * napp,
-            )
-        )
+        log("\n".join(
+            "\t{} solver: {:.3f}s".format(k.capitalize(), st[k] * scale * napp) for k in stages
+        ))

@@ -73,6 +73,35 @@ def test_apply_matches_porotpu_f64(part, source, builds, jax_applies):
 
 
 @pytest.fixture(scope="module")
+def three_way_builds():
+    """The same configuration with the 3-way block PC (``diagonal 3-way``)."""
+    over = dict(OVERRIDES, **{"pc type": "diagonal 3-way"})
+    jp = jbench.swelling_3d(3, overrides=over)
+    jp._build_operators()
+    p = swelling_3d(3, overrides=over, device="cpu")
+    p._build_operators()
+    return jp, p
+
+
+@pytest.mark.parametrize("source", ["converted", "own_build"])
+def test_three_way_apply_matches_porotpu_f64(source, three_way_builds):
+    """The 3-way double sweep: pressure and diffusion solves, two fluid
+    and two solid solves, the weighted sum; f64 to 1e-12 relative."""
+    jp, p = three_way_builds
+    assert jp.pc.three_way and jp.pc.diff_rhs_mask is not None
+    pc = to_torch(jp.pc) if source == "converted" else p.pc
+    assert pc.three_way and (pc.w1, pc.w2) == (jp.pc.w1, jp.pc.w2)
+    np.testing.assert_array_equal(pc.diff_rhs_mask.numpy(), np.asarray(jp.pc.diff_rhs_mask))
+    assert pc.diff_rhs_mask.numpy().min() == 0.0  # the diffusion BC rows are masked
+    x = np.random.default_rng(23).normal(size=sum(jp.padded_sizes))
+    want = np.asarray(jax.jit(lambda o, v: o(v))(jp.pc, jnp.asarray(x)))
+    with torch.inference_mode():
+        got = pc(torch.from_numpy(x)).numpy()
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert np.isfinite(got).all() and err <= 1e-12, err
+
+
+@pytest.fixture(scope="module")
 def cast_builds():
     """The same configuration with the PC built in f32 under an f64 solve."""
     over = dict(OVERRIDES, **{"pc dtype": "float32"})

@@ -133,12 +133,11 @@ def test_chunk_must_be_a_multiple_of_restart():
 @pytest.mark.parametrize(
     "override,what",
     [
-        ({"pc type": "diagonal 3-way"}, "3-way block PC"),
         ({"solver type": "aar"}, "'aar'"),
         ({"inner accel order": 1}, "Anderson"),
         ("petsc-options-exact-iterative", "fgmres\\+fs"),
     ],
-    ids=["override0", "override1", "override3", "override4"],
+    ids=["override1", "override3", "override4"],
 )
 def test_unported_branches_raise(override, what):
     if isinstance(override, str):  # an options file: its fp block asks for fgmres+fs

@@ -7,7 +7,18 @@ same problem on the CPU.
   the PC built in f32 (``pc dtype`` float32, bench.py's f64 datapoint).
 - f64-IR (``porotpu_torch/tools/bench.py:refine``): f32 solves against the
   f64 true residual at N=3, and the roofline helpers' operator size.
+- The driver runs in f64, as tests/test_torch_drivers.py holds the 2-way
+  ones: the same iteration count, the residual history to 1e-8 relative
+  (both record it in f32), the solution to 1e-10 relative (summation
+  order only) and the true-residual guard at the problem's tolerances.
+  The 3-way PC: swelling N=4 ``diagonal 3-way`` under
+  petsc-options-inexact and -exact (porotpu: 12 and 12), footing N=3
+  ``undrained 3-way`` under -inexact (46).  For each run, its
+  assembled preconditioner blocks and P_diff, and its BC-applied padded
+  P_diff, equal porotpu's CSR.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -16,13 +27,33 @@ import torch
 import jax.numpy as jnp
 
 from porotpu.models import benchmarks as jbench
+from porotpu.utils.parser import Parser as JParser
+from porotpu_torch.models import benchmarks
 from porotpu_torch.models.benchmarks import BENCH_OVERRIDES, swelling_3d
 from porotpu_torch.solvers.convergence import FieldwiseTest
 from porotpu_torch.tools import bench
 from porotpu_torch.utils import roofline
+from porotpu_torch.utils.parser import Parser
 
 torch.set_num_threads(1)
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# name -> (benchmark, N, command line, porotpu's iteration count)
+RUNS = {
+    "swelling_3way_inexact": (
+        "swelling", 4, ["--petsc-options", "petsc-options-inexact", "--pc-type", "diagonal 3-way"],
+        12,
+    ),
+    "swelling_3way_exact": (
+        "swelling", 4, ["--petsc-options", "petsc-options-exact", "--pc-type", "diagonal 3-way"],
+        12,
+    ),
+    "footing_3way_inexact": (
+        "footing", 3, ["--petsc-options", "petsc-options-inexact", "--pc-type", "undrained 3-way"],
+        46,
+    ),
+}
+THREE_WAY = ("swelling_3way_inexact", "swelling_3way_exact", "footing_3way_inexact")
 CAST = dict(BENCH_OVERRIDES, dtype="float64", **{"pc dtype": "float32"})
 
 
@@ -101,3 +132,68 @@ def test_roofline_counts_porotpus_padded_values_and_needs_the_card():
         roofline.stream_peak(torch.float32, mb=1, device="cpu")
     with pytest.raises(RuntimeError, match="not a CUDA card"):
         roofline.op_stream_time(p.A_dev, torch.ones(sum(p.padded_sizes)))
+
+
+def _argv(flags):
+    """Flags with the options file as a path into the repository."""
+    return [os.path.join(REPO, f) if f.startswith("petsc-options") else f for f in flags]
+
+
+@pytest.fixture(scope="module", params=list(RUNS))
+def run(request):
+    name, N, flags, count = RUNS[request.param]
+    jp = getattr(jbench, name)(N, parser=JParser(_argv(flags)))
+    jp.solve()
+    p = getattr(benchmarks, name)(N, parser=Parser(_argv(flags)), device="cpu")
+    p.solve()
+    return request.param, count, jp, p
+
+
+def test_run_matches_porotpu(run):
+    name, count, jp, p = run
+    assert p.dtype == torch.float64
+    assert p.iteration_log == jp.iteration_log == [count], name
+    assert p.three_way == jp.three_way == (name in THREE_WAY)
+    if name == "swelling_3way_exact":
+        pc = p.pc
+        assert [s.kind for s in (pc.solve_s, pc.solve_f, pc.solve_p, pc.solve_diff)] == ["lu"] * 4
+    jr, r = jp.last_result, p.last_result
+    assert r.converged and bool(jr.converged)
+    jh = np.asarray(jr.history)
+    assert np.array_equal(np.isnan(r.history), np.isnan(jh))
+    live = ~np.isnan(jh)
+    np.testing.assert_allclose(r.history[live], jh[live], rtol=1e-8, atol=0)
+    x, jx = p.sol.numpy(), np.asarray(jp.sol)
+    assert np.abs(x - jx).max() <= 1e-10 * np.abs(jx).max()
+    assert _guard(p, p.last_rhs, float(p.parameters["solver atol"]),
+                  float(p.parameters["solver rtol"]))
+
+
+def _assert_csr_equal(M, J, key):
+    assert M.shape == J.shape, key
+    M, J = M.tocsr(), J.tocsr()
+    np.testing.assert_array_equal(M.indptr, J.indptr, err_msg=str(key))
+    np.testing.assert_array_equal(M.indices, J.indices, err_msg=str(key))
+    scale = np.abs(J.data).max()
+    np.testing.assert_allclose(M.data, J.data, rtol=1e-14, atol=1e-14 * scale, err_msg=str(key))
+
+
+def test_preconditioner_blocks_match_porotpu_csr(run):
+    """The assembled P blocks and P_diff of the run's pc type, and the
+    BC-applied padded P_diff (rows zeroed at the pressure dofs of bcs and
+    bcs_diff), equal porotpu's."""
+    name, _, jp, p = run
+    blocks, jblocks = p.assembler.P_blocks, jp.assembler.P_blocks
+    assert sorted(blocks) == sorted(jblocks)
+    for key, M in blocks.items():
+        _assert_csr_equal(M, jblocks[key], key)
+    Pd, jPd = p.assembler.P_diff_pp, jp.assembler.P_diff_pp
+    assert (Pd is None) == (jPd is None) == (not p.three_way)
+    _, _, Pd_bc, _ = p._bc_applied_blocks()
+    _, _, jPd_bc, _ = jp._bc_applied_blocks()
+    if p.three_way:
+        _assert_csr_equal(Pd, jPd, "P_diff_pp")
+        _assert_csr_equal(Pd_bc, jPd_bc, "P_diff_pp with BCs")
+        assert Pd_bc.shape == (p.np_p, p.np_p)
+    else:
+        assert Pd_bc is None and jPd_bc is None
