@@ -13,7 +13,9 @@ same problem on the CPU.
   order only) and the true-residual guard at the problem's tolerances.
   The 3-way PC: swelling N=4 ``diagonal 3-way`` under
   petsc-options-inexact and -exact (porotpu: 12 and 12), footing N=3
-  ``undrained 3-way`` under -inexact (46).  For each run, its
+  ``undrained 3-way`` under -inexact (46).  The 2-way pc types nothing
+  else runs, swelling N=4 under -inexact: ``diagonal 3-way-II`` (the
+  grad-div fluid block, 119) and ``lu`` (P = A, 8).  For each run, its
   assembled preconditioner blocks and P_diff, and its BC-applied padded
   P_diff, equal porotpu's CSR.
 """
@@ -52,7 +54,15 @@ RUNS = {
         "footing", 3, ["--petsc-options", "petsc-options-inexact", "--pc-type", "undrained 3-way"],
         46,
     ),
+    "swelling_3way_II_inexact": (
+        "swelling", 4,
+        ["--petsc-options", "petsc-options-inexact", "--pc-type", "diagonal 3-way-II"], 119,
+    ),
+    "swelling_lu_inexact": (
+        "swelling", 4, ["--petsc-options", "petsc-options-inexact", "--pc-type", "lu"], 8,
+    ),
 }
+# the runs of the 3-way PC; "diagonal 3-way-II" is a 2-way PC
 THREE_WAY = ("swelling_3way_inexact", "swelling_3way_exact", "footing_3way_inexact")
 CAST = dict(BENCH_OVERRIDES, dtype="float64", **{"pc dtype": "float32"})
 
