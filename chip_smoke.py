@@ -208,6 +208,7 @@ def path_run(problem, dev, torch, dia_kernel, FieldwiseTest):
     solves on distinct right-hand sides and the true-residual guard.
     Returns the dispatch counts of the step, and its launches by operator."""
     torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
     dia_kernel.reset_counts()
     iterations = problem.solve()
     counts = dict(dia_kernel.COUNTS)
@@ -249,7 +250,8 @@ def path_run(problem, dev, torch, dia_kernel, FieldwiseTest):
     print(f"true residual fieldwise: abs={ea:.3e} rel={er:.3e}")
     check(r_i.converged and (ea < 1e-7 or er < 1e-5), "true-residual guard failed")
     peak = torch.cuda.max_memory_allocated(dev)
-    print(f"peak device memory allocated: {peak / 2**20:.1f} MiB", flush=True)
+    print(f"peak device memory allocated: {peak / 2**20:.1f} MiB, of it {held / 2**20:.1f} MiB "
+          "held before the step by the problems kept for phase 3c", flush=True)
     if iterations != [9]:
         print(f"NOTE: {iterations[0]} iterations, the porotpu oracle (BENCH_r05) took 9")
     return counts, launches
@@ -447,8 +449,9 @@ def hold_set(key, offs, ne, vec, dev, torch, dia_kernel, mb, rng, peaks):
     nbytes = (entries + n_in + n_out) * dtype.itemsize
     ms, warm = mb.cold_ms(run, 30), mb.cuda_ms(run, 50)
     lib, lib_warm = mb.cold_ms(lambda: A @ xc, 30), mb.cuda_ms(lambda: A @ xc, 50)
+    share = mb.shares(ms, nbytes, 2 * entries, dtype, peaks[dtype])
     print(f"  {kernel} {dt} nd={nd} nrows={nrows} ne={ne} ({path}, cluster {plan.cluster}): "
-          f"err {rel:.2e}; cold {ms:.4f} ms ({mb.shares(ms, nbytes, 2 * entries, dtype, peaks[dtype])}), "
+          f"err {rel:.2e}; cold {ms:.4f} ms ({share}), "
           f"warm {warm:.4f} ms; cuSPARSE cold {lib:.4f} warm {lib_warm:.4f} ms",
           flush=True)
     return ms
@@ -570,7 +573,7 @@ def main():
     for label, prob in (("float32", f32), ("float64", cast)):
         roof = bench.spmv_roofline(prob.A_dev, prob.get_rhs(prob.t), peaks[prob.dtype])
         print(bench.roofline_line(f"N=13 block operator, {label}", roof), flush=True)
-    del f32, cast  # the problems' solve closures hold cycles: collect them
+    del f32, cast, prob  # the problems' solve closures hold cycles: collect them
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -10,11 +10,11 @@ right-preconditioned FGMRES solve.
 Ported: the 2-way block preconditioner with the inexact Schur
 fieldsplit or the exact (dense LU) fluid-pressure block, the 3-way block
 preconditioner (its pressure-diffusion block ``P_diff``), a ``pc dtype``
-below the solve dtype (the PC built at that dtype under ``CastPC``), solver types
-gmres/fgmres (both run flexible GMRES), both RHS modes (``loads-only``
-and the reference drivers' ``full-residual``, whose history products
-run on the device operators ``H_dev``), ``solver chunk`` and
-``print_timings``.  The other branches raise NotImplementedError naming
+below the solve dtype (the PC built at that dtype under ``CastPC``),
+solver types gmres/fgmres (both run flexible GMRES), both RHS modes
+(``loads-only`` and the reference drivers' ``full-residual``, whose
+history products run on the device operators ``H_dev``), ``solver
+chunk`` and ``print_timings``.  The other branches raise NotImplementedError naming
 their ROADMAP item.
 """
 

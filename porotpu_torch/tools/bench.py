@@ -39,6 +39,8 @@ from .dia_microbench import HBM_BYTES_PER_S
 GUARD_ATOL, GUARD_RTOL = 1e-7, 1e-5
 # bench.py:136-227: the refinement's f64 tolerances and its passes
 IR_ATOL, IR_RTOL, IR_PASSES = 1e-8, 1e-6, 4
+# timed solves of a datapoint (median), timed refinements (fastest)
+SOLVE_REPS, IR_REPS = 3, 2
 
 
 def build_problem(dtype="float32", N=13, pc_dtype=None, device="cuda"):
@@ -76,13 +78,13 @@ def _cuda_seconds(fn):
     return start.elapsed_time(end) / 1e3, out
 
 
-def timed_solves(problem, b, reps=3):
-    """Median seconds of ``reps`` solves from zero, each on b scaled by
+def timed_solves(problem, b):
+    """Median seconds of SOLVE_REPS solves from zero, each on b scaled by
     1 + 1e-6 (i + 1); returns (median, seconds of each, the last result,
     its right-hand side)."""
     x0 = torch.zeros_like(b)
     times = []
-    for i in range(reps):
+    for i in range(SOLVE_REPS):
         bi = b * (1.0 + 1e-6 * (i + 1))
         t, res = _cuda_seconds(lambda: problem._solve(bi, x0))
         times.append(t)
@@ -160,7 +162,7 @@ def refine(p32, A64, b64, sizes):
     return x, {"passes": len(iters), "f32_iters": iters, "abs": ea, "rel": er}
 
 
-def run_bench_ir(p32, p64, reps=2):
+def run_bench_ir(p32, p64):
     """The f64-IR datapoint on built problems (bench.py:run_bench_ir): p32
     the f32 bench problem, p64 the f64 one, whose operator and right-hand
     side alone are used.  Raises when the refinement misses the f64
@@ -172,7 +174,7 @@ def run_bench_ir(p32, p64, reps=2):
     if not (first["abs"] <= IR_ATOL or first["rel"] <= IR_RTOL):
         raise RuntimeError(f"IR did not reach the f64 tolerance: {first}")
     times = []
-    for trial in range(reps):
+    for trial in range(IR_REPS):
         bt = b64 * (1.0 + 1e-6 * (trial + 1))
         t, (_, info) = _cuda_seconds(lambda: refine(p32, p64.A_dev, bt, p64.padded_sizes))
         times.append(t)

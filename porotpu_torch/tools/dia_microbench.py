@@ -215,17 +215,15 @@ def run(n=98304, nd=233):
     out = {"n": n, "nd": nd, "errors": errs, "max_abs_err": abs_err}
     for k in routes:
         ms, chain_ms = min(t[0] for t in turns[k]), min(t[1] for t in turns[k])
-        b_ms, b_by = bound(nbytes[k], 2 * (nd * n if k == "k3" else entries), torch.float32)
+        flops = 2 * (nd * n if k == "k3" else entries)
+        b_ms, b_by = bound(nbytes[k], flops, torch.float32)
         out[k] = {
             "ms": ms, "turns_ms": [t[0] for t in turns[k]], "chain_ms": chain_ms,
             "gbps": nbytes[k] / ms / 1e6, "bound_ms": b_ms, "bound_by": b_by,
-            "share": b_ms / ms,
+            "nbytes": nbytes[k], "flops": flops,
         }
     out["plain_ms"] = cuda_ms(lambda: dia_kernel.dia_mv_padded_ref(data, offsets, xpad), 5)
     out["stream_peak_gbps"] = stream_peak(torch.float32, device=dev)
-    for k in routes:
-        out[k]["flops"] = 2 * (nd * n if k == "k3" else entries)
-        out[k]["nbytes"] = nbytes[k]
     return out
 
 
@@ -238,9 +236,9 @@ def report(rec):
     for k, name in names.items():
         r = rec[k]
         turns = "/".join(f"{t:.4f}" for t in r["turns_ms"])
+        share = shares(r["ms"], r["nbytes"], r["flops"], torch.float32, rec["stream_peak_gbps"])
         print(f"  {name}: {r['ms']:.4f} ms per launch (turns {turns}) = {r['gbps']:.0f} GB/s "
-              f"= {shares(r['ms'], r['nbytes'], r['flops'], torch.float32, rec['stream_peak_gbps'])}"
-              f"; chained step {r['chain_ms']:.4f} ms")
+              f"= {share}; chained step {r['chain_ms']:.4f} ms")
     print(f"  plain version of K3 (unfold): {rec['plain_ms']:.4f} ms", flush=True)
 
 

@@ -22,11 +22,10 @@ same problem on the CPU.
 
 import os
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-
-import jax.numpy as jnp
 
 from porotpu.models import benchmarks as jbench
 from porotpu.utils.parser import Parser as JParser
@@ -68,7 +67,7 @@ CAST = dict(BENCH_OVERRIDES, dtype="float64", **{"pc dtype": "float32"})
 
 
 def _guard(p, b, atol, rtol):
-    """(abs, rel) of the true-residual field-wise test on the last solve."""
+    """Whether the last solve passes the true-residual field-wise test."""
     with torch.inference_mode():
         r = b - p.A_dev.matvec(p.sol)
         ea, er = FieldwiseTest.from_sizes(p.padded_sizes, b).errors(r)
