@@ -8,8 +8,8 @@
    per source, all together) from the checkout, printing the build time
    and ptxas's register report.  Then the stream peak measured on the
    card in f32 and f64 (utils/roofline.py: a chained triad over 256 MB
-   arrays); every bound share below is printed against the data sheet's
-   3.35 TB/s and against this measured peak.
+   arrays), measured once here; every bound share below is printed
+   against the data sheet's 3.35 TB/s and against this measured peak.
 2. Main path, K1: swelling-3d N=13 with the bench.py overrides (120,842
    dofs, pad multiple 128, f32, loads-only), one time step through
    ``problem.solve()``: FGMRES + the 2-way block preconditioner with AMG.
@@ -17,25 +17,27 @@
    run fails unless K1 launched, K2 did not (f32 transposes run K1 on
    dataT) and no banded product took a plain PyTorch version.  The
    launches of the step are also printed by operator (kernel, dtype, nd,
-   nrows).  Then three timed solves on distinct right-hand sides (CUDA
-   events, median) and bench.py's true-residual field-wise guard.
+   nrows).  Then bench.py's datapoint on the stepped problem
+   (porotpu_torch/tools/bench.py:datapoint): three timed solves on
+   distinct right-hand sides (CUDA events, median), the true-residual
+   field-wise guard and the SpMV rate of the block operator against the
+   measured peak and the data sheet.  The peak device memory of the step
+   is printed net of what earlier phases still hold.
 3. K2's path: the same configuration in f64, where no operator stores
    dataT and every transpose (each restriction P^T r, each Transposed
    coupling block) runs K2.  One step with the counts reset around it
    (K2 and K1 launched, no plain product), three timed solves and the
-   guard.
+   guard (bench's datapoint).
 3b. CastPC, bench.py's f64 datapoint: the f64 solve with the whole PC
    built in f32 (``pc dtype`` float32).  One step, counts reset around
    it: BENCH_r05's 9 iterations and the guard; K1 launched in f32 (the PC
    payload, its transposes on dataT), K2 in f64 (the operator's
-   Transposed pressure rows) and never in f32; no plain product.  Three
-   timed solves.
+   Transposed pressure rows) and never in f32; no plain product.  Then
+   bench's datapoint, as in phase 2.
 3c. bench.py's f64-IR datapoint through porotpu_torch/tools/bench.py:
    f32 solves (phase 2's problem) against the f64 true residual of phase
    3b's operator, 1-4 passes, ending with the field-wise test met in f64
-   (atol 1e-8 / rtol 1e-6); no plain product.  Then bench.py's roofline
-   line: the SpMV rate of the N=13 block operator in f32 and f64 against
-   the measured peak and the data sheet.
+   (atol 1e-8 / rtol 1e-6); no plain product.
 4. K1 against its plain version on the offset sets of the built N=13
    operators (the 233-band level-0 A, the 681-band level-1 A, an embedded
    coupling block and a restriction through dataT on negated offsets), in
@@ -100,7 +102,6 @@ import collections
 import gc
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -133,8 +134,6 @@ DRIVER_RUNS = (
      ["-N", "20", "--petsc-options", "petsc-options-inexact", "--pc-type", "undrained 3-way"],
      31520, [248], True),
 )
-# phase 3b: bench.py's f64 datapoint, the PC built in f32 under CastPC
-CAST_PC = {"dtype": "float64", "pc dtype": "float32"}
 # phase 8 holds, from each run, this many of its heaviest K1 sets, K2 sets
 # and scalar-path sets against the plain version
 HELD_SETS = 4
@@ -202,11 +201,13 @@ def k2_sets(problem):
     return sets
 
 
-def path_run(problem, dev, torch, dia_kernel, FieldwiseTest):
+def path_run(label, problem, dev, torch, dia_kernel, bench, peak_gbps):
     """One step through ``problem.solve()`` (host setup included) with the
-    dispatch counts reset just before and read just after, then three timed
-    solves on distinct right-hand sides and the true-residual guard.
-    Returns the dispatch counts of the step, and its launches by operator."""
+    dispatch counts reset just before and read just after, then bench.py's
+    datapoint on it (``bench.datapoint``: three timed solves on distinct
+    right-hand sides, the true-residual guard, the SpMV roofline against
+    ``peak_gbps``).  Returns the dispatch counts of the step, and its
+    launches by operator."""
     torch.cuda.reset_peak_memory_stats(dev)
     held = torch.cuda.memory_allocated(dev)
     dia_kernel.reset_counts()
@@ -227,31 +228,16 @@ def path_run(problem, dev, torch, dia_kernel, FieldwiseTest):
     sys.stdout.flush()
     check(res.converged, "the solve did not converge")
 
-    b = problem.get_rhs(problem.t)
-    x0 = torch.zeros_like(b)
-    solve_ms, bs = [], []
-    for i in range(3):
-        bi = b * (1.0 + 1e-6 * (i + 1))
-        bs.append(bi)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        r_i = problem._solve(bi, x0)
-        end.record()
-        torch.cuda.synchronize()
-        solve_ms.append(start.elapsed_time(end))
-    solve_s = statistics.median(solve_ms) / 1e3
-    print("timed solves (ms): " + ", ".join(f"{t:.3f}" for t in solve_ms)
-          + f"; median {solve_s:.5f} s, {r_i.iters} iterations")
-    with torch.inference_mode():
-        fw = FieldwiseTest.from_sizes(problem.padded_sizes, bs[-1])
-        ea, er = (float(v) for v in fw.errors(bs[-1] - problem.A_dev.matvec(r_i.x)))
-    print(f"true residual fieldwise: abs={ea:.3e} rel={er:.3e}")
-    check(r_i.converged and (ea < 1e-7 or er < 1e-5), "true-residual guard failed")
+    rec = bench.datapoint(problem, peak_gbps)
+    print("timed solves (ms): " + ", ".join(f"{t * 1e3:.3f}" for t in rec["times_s"])
+          + f"; median {rec['value']:.5f} s, {rec['iters']} iterations")
+    print(f"true residual fieldwise: abs={rec['guard_abs']:.3e} rel={rec['guard_rel']:.3e} "
+          f"(bench's guard: abs < {bench.GUARD_ATOL:g} or rel < {bench.GUARD_RTOL:g})")
+    print(bench.roofline_line(f"N=13 block operator, {label}", rec))
     peak = torch.cuda.max_memory_allocated(dev)
-    print(f"peak device memory allocated: {peak / 2**20:.1f} MiB, of it {held / 2**20:.1f} MiB "
-          "held before the step by the problems kept for phase 3c", flush=True)
+    print(f"peak device memory allocated: {peak / 2**20:.1f} MiB; net of the "
+          f"{held / 2**20:.1f} MiB held before the step, {(peak - held) / 2**20:.1f} MiB",
+          flush=True)
     if iterations != [9]:
         print(f"NOTE: {iterations[0]} iterations, the porotpu oracle (BENCH_r05) took 9")
     return counts, launches
@@ -466,7 +452,6 @@ def main():
               file=sys.stderr)
         return 2
 
-    from porotpu_torch.models.benchmarks import BENCH_OVERRIDES, swelling_3d
     from porotpu_torch.ops import dia_kernel
     from porotpu_torch.ops.dia import transpose_layout
     from porotpu_torch.solvers.convergence import FieldwiseTest
@@ -504,12 +489,13 @@ def main():
           f"data sheet {mb.HBM_BYTES_PER_S / 1e9:.0f} GB/s", flush=True)
 
     # -- 2. main path, K1: swelling-3d N=13 f32, one step ------------------
-    f32 = swelling_3d(13, overrides=dict(BENCH_OVERRIDES), device=dev)
+    f32 = bench.build_problem("float32", device=dev)
     dofs, padded = f32.W.num_dofs, f32.padded_sizes
     print(f"dofs={dofs} padded sizes={padded}")
     check(dofs == 120842, f"dofs {dofs} != 120842")
     check(padded == (59136, 59136, 2816), f"padded sizes {padded}")
-    counts32, launches32 = path_run(f32, dev, torch, dia_kernel, FieldwiseTest)
+    counts32, launches32 = path_run("float32", f32, dev, torch, dia_kernel, bench,
+                                    peaks[torch.float32])
     check(counts32["dia_mv"] > 0, "K1 was never launched on the main path")
     check(counts32["dia_rmv"] == 0, "K2 ran on the f32 path, whose transposes read dataT")
     check(counts32["plain"] == 0, f"{counts32['plain']} banded products took a plain version")
@@ -520,8 +506,9 @@ def main():
 
     # -- 3. K2's path: swelling-3d N=13 f64, one step -----------------------
     print("-- f64 (K2 path)", flush=True)
-    f64 = swelling_3d(13, overrides=dict(BENCH_OVERRIDES, dtype="float64"), device=dev)
-    counts64, launches64 = path_run(f64, dev, torch, dia_kernel, FieldwiseTest)
+    f64 = bench.build_problem("float64", device=dev)
+    counts64, launches64 = path_run("float64", f64, dev, torch, dia_kernel, bench,
+                                    peaks[torch.float64])
     check(counts64["dia_rmv"] > 0, "K2 was never launched on the f64 path")
     check(counts64["dia_mv"] > 0, "K1 was never launched on the f64 path")
     check(counts64["plain"] == 0, f"{counts64['plain']} banded products took a plain version")
@@ -535,8 +522,9 @@ def main():
 
     # -- 3b. CastPC: the f64 solve with the PC built in f32 -----------------
     print("-- f64 solve, f32 PC (CastPC; bench.py's f64 datapoint)", flush=True)
-    cast = swelling_3d(13, overrides=dict(BENCH_OVERRIDES, **CAST_PC), device=dev)
-    counts_c, launches_c = path_run(cast, dev, torch, dia_kernel, FieldwiseTest)
+    cast = bench.build_problem("float64", pc_dtype="float32", device=dev)
+    counts_c, launches_c = path_run("float64, PC in float32", cast, dev, torch, dia_kernel,
+                                    bench, peaks[torch.float64])
     check(type(cast.pc).__name__ == "CastPC", "pc dtype float32 built no CastPC")
     check(cast.iteration_log == [9],
           f"CastPC: {cast.iteration_log} iterations, BENCH_r05's f64 datapoint took 9")
@@ -570,10 +558,7 @@ def main():
           "IR's timed run missed the f64 tolerance")
     check(counts_ir["dia_mv"] > 0 and counts_ir["plain"] == 0,
           f"IR: K1 {counts_ir['dia_mv']} launches, {counts_ir['plain']} plain products")
-    for label, prob in (("float32", f32), ("float64", cast)):
-        roof = bench.spmv_roofline(prob.A_dev, prob.get_rhs(prob.t), peaks[prob.dtype])
-        print(bench.roofline_line(f"N=13 block operator, {label}", roof), flush=True)
-    del f32, cast, prob  # the problems' solve closures hold cycles: collect them
+    del f32, cast  # the problems' solve closures hold cycles: collect them
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -689,8 +674,7 @@ def main():
     # -- 6. small input: the card's path against the CPU plain path --------
     small = {}
     for where in ("cuda", "cpu"):
-        p = swelling_3d(3, overrides=dict(BENCH_OVERRIDES, dtype="float64"),
-                        device=dev if where == "cuda" else "cpu")
+        p = bench.build_problem("float64", 3, device=dev if where == "cuda" else "cpu")
         dia_kernel.reset_counts()
         its = p.solve()
         small[where] = (its[0], p.sol.cpu().numpy(), dict(dia_kernel.COUNTS))
@@ -705,7 +689,7 @@ def main():
 
     # -- 7. K3's path: the microbench -----------------------------------------
     dia_kernel.reset_counts()
-    mbrec = mb.run()
+    mbrec = mb.run(peak_gbps=peaks[torch.float32])
     launches_k3 = dia_kernel.COUNTS["dia_mv_padded"]
     mb.report(mbrec)
     check(launches_k3 > 0, "K3 was never launched by the microbench")

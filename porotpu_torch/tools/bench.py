@@ -4,14 +4,16 @@
 
 Swelling-3d N=13, one time step's solve, one JSON line a datapoint:
 
-- ``run_bench(dtype, pc_dtype=)``: the bench configuration
-  (``BENCH_OVERRIDES``) solved from zero on the first step's right-hand
-  side: three timed solves on distinct right-hand sides (CUDA events,
-  median), bench.py's true-residual guard (field-wise abs < 1e-7 or rel <
-  1e-5), and the SpMV rate of the block operator against the measured
-  stream peak and the data sheet.  f32 is the headline; bench.py's f64
-  datapoint is ``run_bench("float64", pc_dtype="float32")``, the PC built
-  in f32 under CastPC.
+- ``datapoint(problem)``: bench.py's datapoint on a problem that has
+  taken its first step (``problem.solve()``): three timed solves from zero
+  on that step's right-hand side, each scaled by 1 + 1e-6 (i + 1) (CUDA
+  events, median), bench.py's true-residual guard on the last (field-wise
+  abs < 1e-7 or rel < 1e-5), and the SpMV rate of the block operator
+  against the stream peak and the data sheet.  ``run_bench(dtype,
+  pc_dtype=)`` builds the bench configuration (``BENCH_OVERRIDES``), takes
+  its step and returns its datapoint.  f32 is the headline; bench.py's
+  f64 datapoint is ``run_bench("float64", pc_dtype="float32")``, the PC
+  built in f32 under CastPC.
 - ``run_bench_ir(p32, p64)``: f64 accuracy from f32 solves.  ``refine``
   solves the f32 system for a correction against the f64 true residual
   ``b64 - A64 x``, adds it, and checks the field-wise test in f64 at
@@ -78,19 +80,6 @@ def _cuda_seconds(fn):
     return start.elapsed_time(end) / 1e3, out
 
 
-def timed_solves(problem, b):
-    """Median seconds of SOLVE_REPS solves from zero, each on b scaled by
-    1 + 1e-6 (i + 1); returns (median, seconds of each, the last result,
-    its right-hand side)."""
-    x0 = torch.zeros_like(b)
-    times = []
-    for i in range(SOLVE_REPS):
-        bi = b * (1.0 + 1e-6 * (i + 1))
-        t, res = _cuda_seconds(lambda: problem._solve(bi, x0))
-        times.append(t)
-    return statistics.median(times), times, res, bi
-
-
 def spmv_roofline(A, b, peak_gbs):
     """The block operator's product rate: its stored values, the input and
     the output, each moved once a product, over the chained product time;
@@ -118,26 +107,46 @@ def _require_card():
         raise RuntimeError("the bench times the card: it needs a CUDA device")
 
 
-def run_bench(dtype="float32", N=13, pc_dtype=None, device="cuda"):
-    """One datapoint (bench.py:run_bench); raises when the guard fails."""
+def datapoint(problem, peak_gbps=None):
+    """One datapoint (bench.py:run_bench) on a problem that has taken its
+    first step: SOLVE_REPS solves from zero on that step's right-hand side
+    scaled by 1 + 1e-6 (i + 1), their median time, the guard on the last
+    and the block operator's SpMV roofline against ``peak_gbps`` (the
+    stream peak at the problem's dtype, measured here when None).  Raises
+    when a solve fails the guard; returns the record."""
     _require_card()
-    problem = build_problem(dtype, N, pc_dtype, device)
-    b = _ready(problem)
-    first = problem._solve(b, torch.zeros_like(b))
-    solve_s, times, res, bl = timed_solves(problem, b)
-    ea, er = guard(problem, bl, res.x)
+    b = problem.last_rhs
+    x0 = torch.zeros_like(b)
+    times = []
+    for i in range(SOLVE_REPS):
+        bi = b * (1.0 + 1e-6 * (i + 1))
+        t, res = _cuda_seconds(lambda: problem._solve(bi, x0))
+        times.append(t)
+    ea, er = guard(problem, bi, res.x)
+    dtype = str(problem.dtype).removeprefix("torch.")
     if not (res.converged and (ea < GUARD_ATOL or er < GUARD_RTOL)):
         raise RuntimeError(f"bench [{dtype}]: the solve failed its guard (abs {ea:.3e}, "
                            f"rel {er:.3e})")
-    roof = spmv_roofline(problem.A_dev, b, stream_peak(problem.dtype, device=device))
+    if peak_gbps is None:
+        peak_gbps = stream_peak(problem.dtype, device=problem.device)
+    pc_dtype = problem.parameters.get("pc dtype")
     return {
-        "metric": "swelling3d_step_solve_time", "value": solve_s, "unit": "s",
+        "metric": "swelling3d_step_solve_time", "value": statistics.median(times), "unit": "s",
         "dtype": dtype, **({"pc_dtype": pc_dtype} if pc_dtype else {}),
         "dofs": int(problem.W.num_dofs), "iters": int(res.iters),
-        "first_solve_iters": int(first.iters), "times_s": times,
-        "guard_abs": ea, "guard_rel": er, **roof,
-        "device": torch.cuda.get_device_name(torch.device(device)),
+        "first_solve_iters": int(problem.iteration_log[0]), "times_s": times,
+        "guard_abs": ea, "guard_rel": er, **spmv_roofline(problem.A_dev, b, peak_gbps),
+        "device": torch.cuda.get_device_name(problem.device),
     }
+
+
+def run_bench(dtype="float32", N=13, pc_dtype=None, device="cuda", peak_gbps=None):
+    """Build the bench configuration, take its first step and return its
+    datapoint."""
+    _require_card()
+    problem = build_problem(dtype, N, pc_dtype, device)
+    problem.solve()
+    return datapoint(problem, peak_gbps)
 
 
 @torch.inference_mode()
@@ -191,8 +200,10 @@ def main():
     if not torch.cuda.is_available():
         print("bench: needs a CUDA card", file=sys.stderr)
         return 2
-    print(json.dumps(run_bench("float32")), flush=True)
-    print(json.dumps(run_bench("float64", pc_dtype="float32")), flush=True)
+    peaks = {dt: stream_peak(dt) for dt in (torch.float32, torch.float64)}
+    print(json.dumps(run_bench("float32", peak_gbps=peaks[torch.float32])), flush=True)
+    print(json.dumps(run_bench("float64", pc_dtype="float32", peak_gbps=peaks[torch.float64])),
+          flush=True)
     p32 = build_problem("float32")
     p64 = build_problem("float64", pc_dtype="float32")
     print(json.dumps(run_bench_ir(p32, p64)), flush=True)

@@ -146,8 +146,10 @@ def _pattern(n, seed=0):
     return (((i * np.int32(1103 + seed)) % 1009).astype(np.float32) - 504.0) * np.float32(1e-3)
 
 
-def run(n=98304, nd=233):
-    """Check and time K3, K1 and cuSPARSE on card 0; returns the record."""
+def run(n=98304, nd=233, peak_gbps=None):
+    """Check and time K3, K1 and cuSPARSE on card 0; returns the record.
+    Shares are taken against the f32 stream peak ``peak_gbps``, measured
+    here when None."""
     if not torch.cuda.is_available():
         raise RuntimeError("dia_microbench measures the card: it needs a CUDA device")
     dev = torch.device("cuda", 0)
@@ -223,7 +225,8 @@ def run(n=98304, nd=233):
             "nbytes": nbytes[k], "flops": flops,
         }
     out["plain_ms"] = cuda_ms(lambda: dia_kernel.dia_mv_padded_ref(data, offsets, xpad), 5)
-    out["stream_peak_gbps"] = stream_peak(torch.float32, device=dev)
+    out["stream_peak_gbps"] = (stream_peak(torch.float32, device=dev) if peak_gbps is None
+                               else peak_gbps)
     return out
 
 
