@@ -8,7 +8,8 @@ the host and moved to ``device`` in one ``.to``.  Each time step is one
 right-preconditioned FGMRES solve.
 
 Ported: the 2-way block preconditioner with the inexact Schur
-fieldsplit or the exact (dense LU) fluid-pressure block, the 3-way block
+fieldsplit or the exact fluid-pressure block (dense LU, or above its cap
+the quasi-exact ``fgmres+fs`` solve), the 3-way block
 preconditioner (its pressure-diffusion block ``P_diff``), a ``pc dtype``
 below the solve dtype (the PC built at that dtype under ``CastPC``),
 solver types gmres/fgmres (both run flexible GMRES), both RHS modes
@@ -34,7 +35,7 @@ from ..ops.dia import device_matrix
 from ..ops.sparse import FieldMatrix
 from ..precond.amg import rigid_body_modes
 from ..precond.block import BlockPreconditioner, CastPC
-from ..precond.inner import ITERATED, InnerConfig, build_inner_solver
+from ..precond.inner import ITERATED, InnerConfig, InnerSolver, build_inner_solver
 from ..precond.schur import build_schur_fieldsplit
 from ..solvers.convergence import FieldwiseTest
 from ..solvers.gmres import fgmres
@@ -298,8 +299,7 @@ class Poromechanics(AbstractPhysics):
         log("---- [Solver] Solver created in {}s".format(self.t_setup))
 
     def _build_operators(self):
-        """porotpu/models/poromechanics.py:453-709 without the quasi-exact
-        fgmres+fs fp solve (ROADMAP M7.2)."""
+        """porotpu/models/poromechanics.py:453-709."""
         W = self.W
         ns_p, nf_p, np_p = self.padded_sizes
         dtype = self.dtype
@@ -359,11 +359,13 @@ class Poromechanics(AbstractPhysics):
             )
         else:
             cfg_fp = self._inner_cfg("fp")
+            fs_args = (_pget, bc_dofs, B_f, xyz_f, xyz_p, emb_pf, pc_dtype)
             if cfg_fp.method == "lu":
-                solve_fp = self._exact_fp_solve(cfg_fp, _pget, pc_dtype)
+                solve_fp = self._exact_fp_solve(cfg_fp, *fs_args)
             else:
                 solve_fp = self._schur_fp_solve(
-                    _pget, bc_dofs, B_f, xyz_f, xyz_p, emb_pf, pc_dtype
+                    self._inner_cfg("fp_fieldsplit_0"), self._inner_cfg("fp_fieldsplit_1"),
+                    *fs_args,
                 )
             self.pc = BlockPreconditioner(
                 ns_p,
@@ -419,25 +421,44 @@ class Poromechanics(AbstractPhysics):
             w2=float(p.get("w2", 0.1)),
         )
 
-    def _exact_fp_solve(self, cfg_fp, _pget, pc_dtype):
-        """The exact operating point: one dense LU of the whole fp block
-        (porotpu/models/poromechanics.py:563-573, petsc-options-exact)."""
+    def _exact_fp_solve(self, cfg_fp, _pget, bc_dofs, B_f, xyz_f, xyz_p, emb_pf, pc_dtype):
+        """The exact operating point (porotpu/models/poromechanics.py:563-616):
+        one dense LU of the whole fp block up to ``lu_max_size``
+        (petsc-options-exact); above it, or forced by ``-fp_lu_max_size 0``
+        (petsc-options-exact-iterative), the quasi-exact ``fgmres+fs`` solve:
+        ``lu_fallback_iters`` FGMRES iterations on the saddle fp operator,
+        preconditioned by the Schur fieldsplit with 20 cg+amg fluid
+        iterations and the Schur part by ``lu`` (dense up to its own cap)."""
         _, nf_p, np_p = self.padded_sizes
-        if nf_p + np_p > cfg_fp.lu_max_size:
-            raise NotImplementedError(
-                f"the fluid-pressure block ({nf_p + np_p} dofs) exceeds lu_max_size "
-                f"{cfg_fp.lu_max_size}: its quasi-exact fgmres+fs solve is not ported "
-                "yet (ROADMAP M7.2)"
+        if nf_p + np_p <= cfg_fp.lu_max_size:
+            P_fpfp = sp.bmat(
+                [[_pget("f", "f"), _pget("f", "p")], [_pget("p", "f"), _pget("p", "p")]],
+                format="csr",
             )
-        P_fpfp = sp.bmat(
-            [[_pget("f", "f"), _pget("f", "p")], [_pget("p", "f"), _pget("p", "p")]],
-            format="csr",
+            return build_inner_solver(P_fpfp, cfg_fp, dtype=pc_dtype)
+        fs = self._schur_fp_solve(
+            InnerConfig(method="cg+amg", iters=20), InnerConfig(method="lu"),
+            _pget, bc_dofs, B_f, xyz_f, xyz_p, emb_pf, pc_dtype,
         )
-        return build_inner_solver(P_fpfp, cfg_fp, dtype=pc_dtype)
+        fp_op = FieldMatrix(
+            {
+                ("f", "f"): device_matrix(_pget("f", "f"), pc_dtype),
+                ("f", "p"): device_matrix(_pget("f", "p"), pc_dtype, col_emb=emb_pf),
+                ("p", "f"): device_matrix(_pget("p", "f"), pc_dtype, row_emb=emb_pf),
+                ("p", "p"): device_matrix(_pget("p", "p"), pc_dtype),
+            },
+            {"f": nf_p, "p": np_p},
+        )
+        return InnerSolver(
+            "fgmres+fs", {"A": fp_op, "fs": fs}, iters=int(cfg_fp.lu_fallback_iters)
+        )
 
-    def _schur_fp_solve(self, _pget, bc_dofs, B_f, xyz_f, xyz_p, emb_pf, pc_dtype):
-        """The inexact operating point: the lower Schur fieldsplit with the
-        dcc or selfp Schur (porotpu/models/poromechanics.py:530-561, 618-633)."""
+    def _schur_fp_solve(self, cfg_f, cfg_S, _pget, bc_dofs, B_f, xyz_f, xyz_p, emb_pf,
+                        pc_dtype):
+        """The lower Schur fieldsplit with the dcc or selfp Schur
+        (porotpu/models/poromechanics.py:530-561, 574-633), its fluid solved
+        by ``cfg_f`` and its Schur part by ``cfg_S``: the inexact operating
+        point's fp solve, and the preconditioner of the quasi-exact one."""
         ns_p, nf_p, np_p = self.padded_sizes
         dim = self.mesh.dim
         p = self.parameters
@@ -465,8 +486,8 @@ class Poromechanics(AbstractPhysics):
             _pget("f", "p"),
             _pget("p", "f"),
             _pget("p", "p"),
-            self._inner_cfg("fp_fieldsplit_0"),
-            self._inner_cfg("fp_fieldsplit_1"),
+            cfg_f,
+            cfg_S,
             dofs_per_node_f=dim,
             near_nullspace_f=B_f,
             coords_f=xyz_f,

@@ -6,9 +6,10 @@ product); ``chebyshev`` and ``cg`` (fixed-iteration, Jacobi
 preconditioned); ``amg`` (preonly V-cycles, the bench path's hypre
 stand-in); ``cg+amg`` (fixed-iteration CG preconditioned by one V-cycle,
 the drivers' default); ``plus-diag`` (the additive composite of the dcc
-Schur solver).  Every banded product goes through ``ops.dia`` (K1, or K2
-for a transpose, on the card).  ``fgmres+fs``, the quasi-exact
-fluid-pressure solve, is not ported yet (ROADMAP M7.2).
+Schur solver); ``fgmres+fs`` (the quasi-exact fluid-pressure solve: a
+fixed-iteration FGMRES on the saddle fp operator, preconditioned by the
+Schur fieldsplit, to rtol 1e-12).  Every banded product goes through
+``ops.dia`` (K1, or K2 for a transpose, on the card).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from torch import nn
 from ..ops.dia import device_matrix
 from ..solvers.cg import cg_fixed
 from ..solvers.chebyshev import chebyshev
+from ..solvers.gmres import fgmres
 from .amg import _power_lmax, amg_setup
 
 
@@ -65,7 +67,9 @@ class InnerConfig:
         return cls(method="chebyshev", iters=min(maxiter, 10))
 
 
-KINDS = ("identity", "jacobi", "lu", "chebyshev", "cg", "amg", "cg+amg", "plus-diag")
+KINDS = (
+    "identity", "jacobi", "lu", "chebyshev", "cg", "amg", "cg+amg", "plus-diag", "fgmres+fs",
+)
 # the kinds whose iteration count "inner iters" sets
 ITERATED = ("cg+amg", "cg", "chebyshev", "amg")
 
@@ -73,7 +77,7 @@ ITERATED = ("cg+amg", "cg", "chebyshev", "amg")
 class InnerSolver(nn.Module):
     """An approximate solve b -> x for one block.
 
-    ``payload`` maps names to modules (``amg``, ``A``, ``base``) or tensors
+    ``payload`` maps names to modules (``amg``, ``A``, ``base``, ``fs``) or tensors
     (``dinv``, ``inv``, ``wdiag``); modules become submodules and tensors
     buffers, so ``.to(device)`` moves the whole solver.
     """
@@ -81,10 +85,7 @@ class InnerSolver(nn.Module):
     def __init__(self, kind, payload=None, iters=0, lmax=1.0, cheb_frac=30.0):
         super().__init__()
         if kind not in KINDS:
-            raise NotImplementedError(
-                f"inner solver kind {kind!r} is not ported yet (ROADMAP M7.2); "
-                f"ported kinds: {', '.join(KINDS)}"
-            )
+            raise ValueError(f"unknown inner solver kind {kind!r}; kinds: {', '.join(KINDS)}")
         self.kind = kind
         self.iters = iters
         self.lmax = float(lmax)
@@ -124,6 +125,15 @@ class InnerSolver(nn.Module):
             for _ in range(self.iters - 1):
                 x = x + amg(b - self.mods["A"].matvec(x))
             return x
+        if k == "fgmres+fs":
+            # the quasi-exact fp solve (porotpu/precond/inner.py:180-198):
+            # the count or rtol 1e-12 stops it, whichever comes first; the
+            # stop is decided on the host each iteration, as the outer solve's
+            res = fgmres(
+                self.mods["A"].matvec, b, M=self.mods["fs"], rtol=1e-12, atol=0.0,
+                maxiter=self.iters, restart=self.iters,
+            )
+            return res.x
         # plus-diag: y = S_md^-1 b + w_visc diag^-1 b (precond/schur.py dcc)
         return self.mods["base"](b) + self.wdiag * b
 

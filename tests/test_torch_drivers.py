@@ -39,7 +39,6 @@ from porotpu.utils.options import OptionsDB as JOptionsDB
 from porotpu.utils.parser import Parser as JParser
 from porotpu_torch.models import benchmarks
 from porotpu_torch.precond.amg import amg_setup
-from porotpu_torch.precond.inner import InnerSolver
 from porotpu_torch.solvers.convergence import FieldwiseTest
 from porotpu_torch.utils.options import OptionsDB
 from porotpu_torch.utils.parser import Parser
@@ -247,9 +246,8 @@ def _swelling_2d(**overrides):
         ("export.*M7\\.5", lambda: _swelling_2d(**{"output solutions": True})),
         ("monitors.*M7\\.6", lambda: _swelling_2d(**{"inner monitor": True}).create_solver()),
         ("greedy.*M7\\.2", lambda: amg_setup(sp.identity(8, format="csr"))),
-        ("'fgmres\\+fs'.*M7\\.2", lambda: InnerSolver("fgmres+fs")),
     ],
-    ids=["outer_cg", "cache", "export", "inner_monitor", "greedy_amg", "fgmres_fs"],
+    ids=["outer_cg", "cache", "export", "inner_monitor", "greedy_amg"],
 )
 def test_other_unported_features_raise(what, attempt):
     with pytest.raises(NotImplementedError, match=what):

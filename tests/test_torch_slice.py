@@ -135,13 +135,10 @@ def test_chunk_must_be_a_multiple_of_restart():
     [
         ({"solver type": "aar"}, "'aar'"),
         ({"inner accel order": 1}, "Anderson"),
-        ("petsc-options-exact-iterative", "fgmres\\+fs"),
     ],
-    ids=["override1", "override3", "override4"],
+    ids=["override1", "override3"],
 )
 def test_unported_branches_raise(override, what):
-    if isinstance(override, str):  # an options file: its fp block asks for fgmres+fs
-        override = {"options db": OptionsDB.from_file(os.path.join(REPO, override))}
     p = swelling_3d(2, overrides=dict(F64, **override), device="cpu")
     with pytest.raises(NotImplementedError, match=what + r".*ROADMAP M7\.\d"):
         p.create_solver()
