@@ -1,15 +1,15 @@
 """Smoothed-aggregation AMG (porotpu/precond/amg.py).
 
-Host setup (numpy/scipy, once per operator) is a copy of porotpu's
-lattice-box path: box aggregation, tentative prolongator from the
-near-nullspace, Jacobi prolongator smoothing, band-wise P truncation,
-Galerkin coarse operators, 128-row padding of the coarse levels and a
-dense coarse inverse.  The V-cycle runs on the device: Chebyshev
-smoothing and banded transfers, every banded product through
-``ops.dia`` (kernel K1 on CUDA).
-
-Greedy strength-graph aggregation (setup without node coordinates) is
-not ported: every AMG on the bench path is built with coordinates.
+Host setup (numpy/scipy, once per operator) is a copy of porotpu's:
+lattice-box aggregation when node coordinates are given, else greedy
+strength-graph aggregation over nodes; then the tentative prolongator
+from the near-nullspace, Jacobi prolongator smoothing, band-wise P
+truncation, Galerkin coarse operators, 128-row padding of the coarse
+levels and a dense coarse inverse.  The V-cycle runs on the device:
+Chebyshev smoothing and the transfers, every banded product through
+``ops.dia`` (kernel K1 on CUDA).  ``device_matrix`` picks each level's
+storage format as porotpu's: a greedy prolongator stays banded only
+while its aggregates are lattice-near, else it stores ELL.
 """
 
 from __future__ import annotations
@@ -24,8 +24,71 @@ from torch import nn
 from ..ops.dia import device_matrix
 
 # ---------------------------------------------------------------------------
-# host setup: copies of porotpu/precond/amg.py (134-264, 371-574)
+# host setup: copies of porotpu/precond/amg.py (36-264, 371-574)
 # ---------------------------------------------------------------------------
+
+
+def _node_graph(A: sp.csr_matrix, d: int) -> sp.csr_matrix:
+    """The node graph of a matrix with d dofs per node: entry (I, J) sums
+    |a_ij| over the dof block (porotpu/precond/amg.py:36).  For d > 1 this
+    is porotpu's native linear pass (porotpu/native/aggregation.cpp:
+    collapse_node_graph): |a_ij| at (i // d, j // d), summed as scipy sums
+    duplicates.  Its Q^T |A| Q fallback would sort an unsorted A's indices
+    in place (``abs`` canonicalizes), and the next level's A @ P would then
+    round differently from porotpu's."""
+    if d == 1:
+        return abs(A).tocsr()
+    n = A.shape[0]
+    rows = np.repeat(np.arange(n) // d, np.diff(A.indptr))
+    C = sp.coo_matrix(
+        (np.abs(A.data), (rows, A.indices // d)), shape=(n // d, n // d)
+    ).tocsr()
+    C.sum_duplicates()
+    return C
+
+
+def _strength(C: sp.csr_matrix, theta: float) -> sp.csr_matrix:
+    """Symmetric strength of connection, |c_ij| >= theta sqrt(c_ii c_jj),
+    off the diagonal (porotpu/precond/amg.py:78)."""
+    C = C.tocsr()
+    diag = np.asarray(C.diagonal())
+    diag[diag <= 0] = 1.0
+    rows = np.repeat(np.arange(C.shape[0]), np.diff(C.indptr))
+    thresh = theta * np.sqrt(diag[rows] * diag[C.indices])
+    keep = (np.abs(C.data) >= thresh) & (rows != C.indices)
+    return sp.csr_matrix((np.ones(keep.sum()), (rows[keep], C.indices[keep])), shape=C.shape)
+
+
+def _aggregate(S: sp.csr_matrix) -> np.ndarray:
+    """Greedy standard aggregation of a strength graph: the aggregate id of
+    each node (porotpu/precond/amg.py:91-131)."""
+    n = S.shape[0]
+    agg = np.full(n, -1, dtype=np.int64)
+    indptr, indices = S.indptr, S.indices
+    na = 0
+    # pass 1: roots whose strong neighbourhood is all free
+    for i in range(n):
+        if agg[i] != -1:
+            continue
+        nbrs = indices[indptr[i] : indptr[i + 1]]
+        if np.all(agg[nbrs] == -1):
+            agg[i] = na
+            agg[nbrs] = na
+            na += 1
+    # pass 2: stragglers join the first aggregated neighbour
+    for i in range(n):
+        if agg[i] != -1:
+            continue
+        anbrs = agg[indices[indptr[i] : indptr[i + 1]]]
+        anbrs = anbrs[anbrs != -1]
+        if anbrs.size:
+            agg[i] = anbrs[0]
+    # pass 3: isolated nodes become aggregates of their own
+    for i in range(n):
+        if agg[i] == -1:
+            agg[i] = na
+            na += 1
+    return agg
 
 
 def _aggregate_boxes(coords: np.ndarray, h_box: float) -> np.ndarray:
@@ -221,6 +284,7 @@ def amg_setup(
     A: sp.csr_matrix,
     dofs_per_node: int = 1,
     B: np.ndarray | None = None,
+    theta: float = 0.08,
     max_levels: int = 10,
     coarse_size: int = 2000,
     presmooth: int = 1,
@@ -233,16 +297,10 @@ def amg_setup(
     p_drop_tol: float = 0.0,
     dtype=torch.float32,
 ) -> AMG:
-    """Build a lattice-box smoothed-aggregation hierarchy on the host
-    (copy of the coords path of porotpu/precond/amg.py:371-544).
-
-    ``coords`` is required: greedy strength-graph aggregation is not ported.
-    """
-    if coords is None:
-        raise NotImplementedError(
-            "AMG without node coordinates (greedy strength-graph aggregation) "
-            "is not ported yet (ROADMAP M7.2)"
-        )
+    """Build a smoothed-aggregation hierarchy on the host (copy of
+    porotpu/precond/amg.py:371-544).  With ``coords`` (n_nodes, dim) the
+    aggregates are lattice boxes, so every level stays banded; without,
+    greedy aggregation of the strength graph at ``theta``."""
     A = A.tocsr()
     n = A.shape[0]
     d = dofs_per_node
@@ -252,26 +310,52 @@ def amg_setup(
             B[c::d, c] = 1.0
 
     levels = []
-    coords = np.asarray(coords, dtype=np.float64)
-    if box_factor is None:
-        box_factor = 2.0 if coords.shape[1] == 2 else 3.0
-    node_of_dof = np.repeat(np.arange(coords.shape[0]), d)
-    if node_of_dof.size != A.shape[0]:
-        raise ValueError("coords size does not match A / dofs_per_node")
-    h_node = _node_spacing(coords) if h0 is None else float(h0)
+    max_dense = max(coarse_size * 4, 6000)
+    use_boxes = coords is not None
+    if use_boxes:
+        coords = np.asarray(coords, dtype=np.float64)
+        if box_factor is None:
+            box_factor = 2.0 if coords.shape[1] == 2 else 3.0
+        node_of_dof = np.repeat(np.arange(coords.shape[0]), d)
+        if node_of_dof.size != A.shape[0]:
+            raise ValueError("coords size does not match A / dofs_per_node")
+        h_node = _node_spacing(coords) if h0 is None else float(h0)
 
     while A.shape[0] > coarse_size and len(levels) < max_levels - 1:
-        agg = None
-        # grow the box until it actually coarsens
-        for grow in range(4):
-            cand = _aggregate_boxes(coords, box_factor * h_node * 2**grow)
-            if int(cand.max()) + 1 <= 0.7 * coords.shape[0]:
-                agg = cand
-                h_node = box_factor * h_node * 2**grow
+        if use_boxes:
+            agg = None
+            # grow the box until it actually coarsens
+            for grow in range(4):
+                cand = _aggregate_boxes(coords, box_factor * h_node * 2**grow)
+                if int(cand.max()) + 1 <= 0.7 * coords.shape[0]:
+                    agg = cand
+                    h_node = box_factor * h_node * 2**grow
+                    break
+            if agg is None:
                 break
-        if agg is None:
-            break
-        dof_agg = agg[node_of_dof]
+            dof_agg = agg[node_of_dof]
+        else:
+            # rank-revealing column drops can leave a coarse size that is no
+            # multiple of the block size: collapse per dof
+            if A.shape[0] % d != 0:
+                d = 1
+            C = _node_graph(A, d)
+            agg = _aggregate(_strength(C, theta))
+            # stall guard (porotpu/precond/amg.py:442-456): a near-empty
+            # strength graph (a mass-dominated block) gives singleton
+            # aggregates; solve this level directly, or above the dense cap
+            # retry once at theta / 4
+            stalled = lambda a: (  # noqa: E731
+                (int(a.max()) + 1) * B.shape[1] >= A.shape[0]
+                or int(a.max()) + 1 > 0.7 * C.shape[0]
+            )
+            if stalled(agg):
+                if A.shape[0] <= max_dense:
+                    break
+                agg = _aggregate(_strength(C, theta / 4.0))
+                if stalled(agg):
+                    break
+            dof_agg = np.repeat(agg, d)
         T, Bc, emb, node_of_coarse = _tentative_prolongator(dof_agg, B)
         if T.shape[1] >= A.shape[0]:
             break
@@ -307,14 +391,16 @@ def amg_setup(
         A = Ac
         B = Bc
         d = B.shape[1]
-        # coarse node coords = aggregate centroids
-        na = int(agg.max()) + 1
-        cnt = np.bincount(agg, minlength=na).astype(np.float64)
-        coords = np.stack(
-            [np.bincount(agg, weights=coords[:, j], minlength=na) for j in range(coords.shape[1])],
-            axis=1,
-        ) / cnt[:, None]
-        node_of_dof = node_of_coarse
+        if use_boxes:
+            # coarse node coords = aggregate centroids
+            na = int(agg.max()) + 1
+            cnt = np.bincount(agg, minlength=na).astype(np.float64)
+            coords = np.stack(
+                [np.bincount(agg, weights=coords[:, j], minlength=na)
+                 for j in range(coords.shape[1])],
+                axis=1,
+            ) / cnt[:, None]
+            node_of_dof = node_of_coarse
 
     # coarsest: dense inverse, pseudo-inverse when (near) singular
     Ad = np.asarray(A.todense(), dtype=np.float64)

@@ -180,6 +180,7 @@ def build_inner_solver(
         A,
         dofs_per_node=dofs_per_node,
         B=near_nullspace,
+        theta=cfg.amg_theta,
         coarse_size=cfg.amg_coarse_size,
         presmooth=cfg.amg_presmooth,
         postsmooth=cfg.amg_postsmooth,

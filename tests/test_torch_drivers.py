@@ -31,14 +31,12 @@ import sys
 
 import numpy as np
 import pytest
-import scipy.sparse as sp
 import torch
 
 from porotpu.models import benchmarks as jbench
 from porotpu.utils.options import OptionsDB as JOptionsDB
 from porotpu.utils.parser import Parser as JParser
 from porotpu_torch.models import benchmarks
-from porotpu_torch.precond.amg import amg_setup
 from porotpu_torch.solvers.convergence import FieldwiseTest
 from porotpu_torch.utils.options import OptionsDB
 from porotpu_torch.utils.parser import Parser
@@ -245,9 +243,8 @@ def _swelling_2d(**overrides):
          lambda: _swelling_2d(**{"solver cache path": "unused"}).create_solver()),
         ("export.*M7\\.5", lambda: _swelling_2d(**{"output solutions": True})),
         ("monitors.*M7\\.6", lambda: _swelling_2d(**{"inner monitor": True}).create_solver()),
-        ("greedy.*M7\\.2", lambda: amg_setup(sp.identity(8, format="csr"))),
     ],
-    ids=["outer_cg", "cache", "export", "inner_monitor", "greedy_amg"],
+    ids=["outer_cg", "cache", "export", "inner_monitor"],
 )
 def test_other_unported_features_raise(what, attempt):
     with pytest.raises(NotImplementedError, match=what):
