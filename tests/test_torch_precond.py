@@ -80,21 +80,20 @@ def three_way_builds():
     jp._build_operators()
     p = swelling_3d(3, overrides=over, device="cpu")
     p._build_operators()
-    return jp, p
+    x = np.random.default_rng(23).normal(size=sum(jp.padded_sizes))
+    return jp, p, x, np.asarray(jax.jit(lambda o, v: o(v))(jp.pc, jnp.asarray(x)))
 
 
 @pytest.mark.parametrize("source", ["converted", "own_build"])
 def test_three_way_apply_matches_porotpu_f64(source, three_way_builds):
     """The 3-way double sweep: pressure and diffusion solves, two fluid
     and two solid solves, the weighted sum; f64 to 1e-12 relative."""
-    jp, p = three_way_builds
+    jp, p, x, want = three_way_builds
     assert jp.pc.three_way and jp.pc.diff_rhs_mask is not None
     pc = to_torch(jp.pc) if source == "converted" else p.pc
     assert pc.three_way and (pc.w1, pc.w2) == (jp.pc.w1, jp.pc.w2)
     np.testing.assert_array_equal(pc.diff_rhs_mask.numpy(), np.asarray(jp.pc.diff_rhs_mask))
     assert pc.diff_rhs_mask.numpy().min() == 0.0  # the diffusion BC rows are masked
-    x = np.random.default_rng(23).normal(size=sum(jp.padded_sizes))
-    want = np.asarray(jax.jit(lambda o, v: o(v))(jp.pc, jnp.asarray(x)))
     with torch.inference_mode():
         got = pc(torch.from_numpy(x)).numpy()
     err = np.abs(got - want).max() / np.abs(want).max()
@@ -109,7 +108,8 @@ def cast_builds():
     jp._build_operators()
     p = swelling_3d(3, overrides=over, device="cpu")
     p._build_operators()
-    return jp, p
+    x = np.random.default_rng(22).normal(size=sum(jp.padded_sizes))
+    return jp, p, x, np.asarray(jax.jit(lambda o, v: o(v))(jp.pc, jnp.asarray(x)))
 
 
 @pytest.mark.parametrize("source", ["converted", "own_build"])
@@ -117,7 +117,7 @@ def test_cast_pc_apply_matches_porotpu(source, cast_builds):
     """CastPC: f64 in and out, an f32 payload.  Both sides round the same
     f32 V-cycles in another summation order, which the cycle amplifies
     by the blocks' conditioning: 1e-5 relative (f32's epsilon is 1.2e-7)."""
-    jp, p = cast_builds
+    jp, p, x, want = cast_builds
     assert type(jp.pc).__name__ == "CastPC"
     pc = to_torch(jp.pc) if source == "converted" else p.pc
     assert type(pc).__name__ == "CastPC"
@@ -125,8 +125,6 @@ def test_cast_pc_apply_matches_porotpu(source, cast_builds):
     # a move to a device keeps the payload's dtype
     floats = [b.dtype for b in pc.to(torch.device("cpu")).buffers() if b.is_floating_point()]
     assert floats and set(floats) == {torch.float32}
-    x = np.random.default_rng(22).normal(size=sum(jp.padded_sizes))
-    want = np.asarray(jax.jit(lambda o, v: o(v))(jp.pc, jnp.asarray(x)))
     assert want.dtype == np.float64
     with torch.inference_mode():
         got = pc(torch.from_numpy(x))

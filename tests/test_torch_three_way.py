@@ -6,7 +6,8 @@ same problem on the CPU.
 - CastPC: swelling-3d N=3 with the bench overrides, f64 outer solve and
   the PC built in f32 (``pc dtype`` float32, bench.py's f64 datapoint).
 - f64-IR (``porotpu_torch/tools/bench.py:refine``): f32 solves against the
-  f64 true residual at N=3, and the roofline helpers' operator size.
+  f64 true residual at N=3, and the roofline helpers' operator size on
+  the same f32 problem.
 - The driver runs in f64, as tests/test_torch_drivers.py holds the 2-way
   ones: the same iteration count, the residual history to 1e-8 relative
   (both record it in f32), the solution to 1e-10 relative (summation
@@ -104,16 +105,27 @@ def test_cast_pc_slice_matches_porotpu():
     assert float(ea) < 1e-7 or float(er) < 1e-5
 
 
-def test_refinement_reaches_f64_from_f32_solves():
+@pytest.fixture(scope="module")
+def f32_pair():
+    """bench.py's f32 configuration at N=3, built by the port and by
+    porotpu (solvers created, not solved)."""
+    p32 = bench.build_problem("float32", 3, device="cpu")
+    p32.create_solver()
+    p32.first_timestep = False
+    jp = jbench.swelling_3d(3, overrides=dict(BENCH_OVERRIDES))
+    jp.create_solver()
+    return p32, jp
+
+
+def test_refinement_reaches_f64_from_f32_solves(f32_pair):
     """bench.py's f64-IR datapoint at N=3: the first pass takes porotpu's
     f32 iteration count on the same right-hand side, and the loop ends
     with the field-wise test met in f64 at atol 1e-8 / rtol 1e-6 within
     its 4 passes."""
-    p32 = bench.build_problem("float32", 3, device="cpu")
+    p32, jp = f32_pair
     p64 = bench.build_problem("float64", 3, pc_dtype="float32", device="cpu")
-    for p in (p32, p64):
-        p.create_solver()
-        p.first_timestep = False
+    p64.create_solver()
+    p64.first_timestep = False
     b64 = p64.get_rhs(p64.t0 + p64.dt)
     x, info = bench.refine(p32, p64.A_dev, b64, p64.padded_sizes)
     assert 1 <= info["passes"] <= bench.IR_PASSES
@@ -122,18 +134,13 @@ def test_refinement_reaches_f64_from_f32_solves():
     ea, er = bench.guard(p64, b64, x)
     assert (ea, er) == (info["abs"], info["rel"])
 
-    jp = jbench.swelling_3d(3, overrides=dict(BENCH_OVERRIDES))
-    jp.create_solver()
     b32 = jnp.asarray(b64.numpy().astype(np.float32))
     jres = jp._jit_solve(jp.A_dev, jp.pc, b32, jnp.zeros_like(b32))
     assert info["f32_iters"][0] == int(jres.iters)
 
 
-def test_roofline_counts_porotpus_padded_values_and_needs_the_card():
-    p = swelling_3d(2, overrides=dict(BENCH_OVERRIDES), device="cpu")
-    p.create_solver()
-    jp = jbench.swelling_3d(2, overrides=dict(BENCH_OVERRIDES))
-    jp.create_solver()
+def test_roofline_counts_porotpus_padded_values_and_needs_the_card(f32_pair):
+    p, jp = f32_pair
     assert roofline.padded_values(p.A_dev) == sum(
         int(e.nnz_padded) for e in jp.A_dev.blocks.values()
     )
