@@ -88,9 +88,30 @@
    iterations), swelling N=20 exact (11; s/f/p/diff solves all dense LU)
    and footing N=20 ``undrained 3-way`` inexact (31,520 dofs, 248), each
    with the same checks and held sets; each must launch K2.
+   The quasi-exact protocol (petsc-options-exact-iterative, the
+   robustness grid's exact cells above the dense cap): swelling N=80 2-way
+   (7 iterations; the fp block is the ``fgmres+fs`` solve: 60 FGMRES
+   iterations at most on the saddle fp operator, stopped at rtol 1e-12,
+   preconditioned by the Schur fieldsplit with 20 cg+amg fluid
+   iterations and a dense-LU Schur part), footing N=20 2-way undrained
+   (27; K2 as the walk of its operators says) and swelling N=80
+   ``diagonal 3-way`` (6; every block cg+amg at 60 iterations).  Each run
+   also prints its host syncs in the solve (``torch.cuda``'s sync debug
+   mode, one warning a sync) and the inner FGMRES iterations of each fp
+   apply.
 9. The drivers' defaults (full-residual RHS, cg+amg inner solves):
    swelling N=6 over three steps on the card and with ``--device cpu``
    must take the same iterations at every step and agree to 1e-10.
+10. AMG without coordinates (greedy aggregation of the strength graph):
+   ``amg_setup(coords=None)`` on swelling N=80's solid block as assembled
+   (f64, symmetric positive definite; rigid-body near-nullspace, the
+   drivers' AMG settings), its host
+   setup time, levels and each prolongator's storage format; then a
+   plain preconditioned CG loop (this script's ``pcg``: the port's
+   tolerance-based cg is ROADMAP M7.3) at rtol 1e-8 from one seeded
+   right-hand side with that AMG, on the card (counts reset around it: K1
+   launched, no plain product) and on the CPU: the same iteration count
+   and solutions within 1e-10 relative.
 
 Any failed check raises and the script exits non-zero.  It also exits
 non-zero without a CUDA device, and fails if jax or any module of porotpu
@@ -109,8 +130,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # phase 8: label, driver, command line, dofs, porotpu's f64 iterations at
 # t=0.1 (output/SUMMARY.md; dofs from output/robustness-2d-*.out) and
-# whether the run holds banded transposes (then K2 must launch; else none
-# may exist and K2 must not launch)
+# whether the run holds banded transposes (True: K2 must launch; False:
+# none may exist and K2 must not launch; None: K2 launches exactly when
+# the walk of the run's operators finds one)
 DRIVER_RUNS = (
     ("swelling_inexact", "swelling",
      ["-N", "80", "--petsc-options", "petsc-options-inexact"], 110245, [16], True),
@@ -133,7 +155,20 @@ DRIVER_RUNS = (
     ("footing_3way_inexact", "footing",
      ["-N", "20", "--petsc-options", "petsc-options-inexact", "--pc-type", "undrained 3-way"],
      31520, [248], True),
+    # the quasi-exact protocol (paper-scripts/robustness_2d.sh's qexact
+    # cells): the fp block is the fgmres+fs solve, the 3-way blocks cg+amg
+    ("swelling_qexact", "swelling",
+     ["-N", "80", "--petsc-options", "petsc-options-exact-iterative"], 110245, [7], True),
+    ("footing_qexact", "footing",
+     ["-N", "20", "--petsc-options", "petsc-options-exact-iterative", "--pc-type", "undrained"],
+     31520, [27], None),
+    ("swelling_3way_qexact", "swelling",
+     ["-N", "80", "--petsc-options", "petsc-options-exact-iterative",
+      "--pc-type", "diagonal 3-way"], 110245, [6], True),
 )
+# phase 10: swelling N=80's solid block, AMG without coordinates
+GREEDY_RUN = ["-N", "80"]
+GREEDY_RTOL = 1e-8
 # phase 8 holds, from each run, this many of its heaviest K1 sets, K2 sets
 # and scalar-path sets against the plain version
 HELD_SETS = 4
@@ -292,13 +327,43 @@ def time_heaviest_ell(ops, ell, dev, torch, mb, peaks):
               f"{ell[key] * (ms - b_ms):.1f} ms", flush=True)
 
 
+def count_syncs(torch):
+    """A context manager that counts the host syncs torch.cuda reports in
+    its sync debug mode (one warning a synchronizing call) into
+    ``.n``."""
+    import contextlib
+    import warnings
+
+    class Counter(contextlib.ContextDecorator):
+        n = 0
+
+        def __enter__(self):
+            self._w = warnings.catch_warnings(record=True)
+            self._log = self._w.__enter__()
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            return self
+
+        def __exit__(self, *exc):
+            torch.cuda.set_sync_debug_mode("default")
+            self.n = sum("synchroniz" in str(w.message) for w in self._log)
+            self._w.__exit__(*exc)
+            return False
+
+    return Counter()
+
+
 def driver_run(label, drv, argv, dofs, oracle, k2, dev, torch, dia_kernel, ell_products,
-               FieldwiseTest, mb, peaks):
+               inner_iters, FieldwiseTest, mb, peaks):
     """One driver run on the card: ``setup(argv)``, then ``solve()`` with the
     counts reset just before and read just after, then ``print_timings()``.
     Checks the dofs, the true-residual guard at the problem's own
-    tolerances, K1 > 0, no plain product, and K2 as the run expects
-    (``k2``: launched, or no banded transpose and no launch).  Returns the
+    tolerances, K1 > 0 in f64, no plain product, and K2 as the run expects
+    (``k2``: launched; no banded transpose and no launch; or, for None,
+    launched exactly when the run holds a banded transpose).  Prints the
+    host syncs of the solve and the inner FGMRES iterations of each
+    ``fgmres+fs`` apply (``inner_iters``, filled by the caller's hook).
+    Returns the
     run's numbers and the sets to hold against the plain version: a list
     of ((kernel, dtype, nd, nrows), offsets, ne, vector path, launches).
     The iteration count is returned, not checked, so that every run
@@ -313,15 +378,22 @@ def driver_run(label, drv, argv, dofs, oracle, k2, dev, torch, dia_kernel, ell_p
           f"{label}: runs on {problem.device} in {problem.dtype}, not on the card in f64")
     n = problem.W.num_dofs
     check(n == dofs, f"{label}: {n} dofs, porotpu's run had {dofs}")
+    # the host setup (first step's create_solver) outside the sync count:
+    # moving the solver state to the card syncs once a buffer
+    problem.create_solver()
+    problem.first_timestep = False
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     dia_kernel.reset_counts()
     ell_products.clear()
-    iterations = problem.solve()
+    inner_iters.clear()
+    with count_syncs(torch) as syncs:
+        iterations = problem.solve()
     counts = dict(dia_kernel.COUNTS)
     launches = dict(dia_kernel.LAUNCHES)
     scalar = dict(dia_kernel.SCALAR_LAUNCHES)
     ell = dict(ell_products)
+    fp_iters = list(inner_iters)
     peak = torch.cuda.max_memory_allocated(dev)
     res = problem.last_result
     hist = [float(h) for h in res.history[: res.iters + 1]]
@@ -335,7 +407,12 @@ def driver_run(label, drv, argv, dofs, oracle, k2, dev, torch, dia_kernel, ell_p
           f"residual={res.res:.4e}")
     print("residual history:", " ".join(f"{h:.4e}" for h in hist))
     print("dispatch counts in the solve: " + ", ".join(f"{k}={v}" for k, v in counts.items())
-          + f"; K1+K2 launches an iteration {k12 / max(its, 1):.1f}")
+          + f"; K1+K2 launches an iteration {k12 / max(its, 1):.1f} (K1 "
+          f"{counts['dia_mv'] / max(its, 1):.1f}, K2 {counts['dia_rmv'] / max(its, 1):.1f})")
+    print(f"host syncs in the solve: {syncs.n} ({syncs.n / max(its, 1):.1f} an iteration)")
+    if fp_iters:
+        print(f"inner fgmres+fs: {len(fp_iters)} applies, iterations an apply "
+              f"min {min(fp_iters)} max {max(fp_iters)}, total {sum(fp_iters)}")
     print(f"scalar-path launches: {n_scalar} of {k12} ({100 * n_scalar / max(k12, 1):.1f}%); "
           f"ELL products: {sum(ell.values())}")
     print("launches by operator (kernel dtype nd nrows: launches, of them scalar path):")
@@ -358,12 +435,14 @@ def driver_run(label, drv, argv, dofs, oracle, k2, dev, torch, dia_kernel, ell_p
     check(res.converged, f"{label}: the solve did not converge")
     check(ea < atol or er < rtol, f"{label}: true-residual guard failed")
     check(np.isfinite(problem.sol.cpu().numpy()).all(), f"{label}: non-finite solution")
-    check(counts["dia_mv"] > 0, f"{label}: K1 was never launched")
+    check(any(k[:2] == ("dia_mv", "float64") for k in launches), f"{label}: K1 never ran in f64")
     check(counts["plain"] == 0, f"{label}: {counts['plain']} banded products took a plain version")
     ops = operators(problem)
     transposes = banded_transposes(ops)
     print(f"banded operators applied transposed (K2's): {len(transposes)}; "
           f"DIA {len(ops['DIA'])}, ELL {len(ops['ELL'])}, Transposed {len(ops['Transposed'])}")
+    if k2 is None:
+        k2 = bool(transposes)
     if k2:
         check(counts["dia_rmv"] > 0, f"{label}: K2 was never launched")
     else:
@@ -393,7 +472,8 @@ def driver_run(label, drv, argv, dofs, oracle, k2, dev, torch, dia_kernel, ell_p
     print(f"sets held against the plain version: {len(held)}, "
           f"{100 * share:.1f}% of the run's K1+K2 launches", flush=True)
     out = dict(iterations=iterations, launches=launches, scalar=scalar, counts=counts, held=held,
-               solve_s=problem.t_solve_total, setup_s=problem.t_setup, peak_mib=peak / 2**20)
+               solve_s=problem.t_solve_total, setup_s=problem.t_setup, peak_mib=peak / 2**20,
+               fp_iters=fp_iters)
     out["problem"] = problem
     return out
 
@@ -441,6 +521,88 @@ def hold_set(key, offs, ne, vec, dev, torch, dia_kernel, mb, rng, peaks):
           f"warm {warm:.4f} ms; cuSPARSE cold {lib:.4f} warm {lib_warm:.4f} ms",
           flush=True)
     return ms
+
+
+def pcg(A, M, b, rtol, maxiter=500):
+    """Preconditioned CG from x = 0 until ||r|| <= rtol ||b||: (x, iterations)."""
+    import torch
+
+    x, r = torch.zeros_like(b), b.clone()
+    z = M(r)
+    p, rz = z, torch.dot(r, z)
+    bnorm = torch.linalg.norm(b).item()
+    for k in range(1, maxiter + 1):
+        Ap = A(p)
+        alpha = rz / torch.dot(p, Ap)
+        x, r = x + alpha * p, r - alpha * Ap
+        if torch.linalg.norm(r).item() <= rtol * bnorm:
+            return x, k
+        z = M(r)
+        rz_new = torch.dot(r, z)
+        p, rz = z + (rz_new / rz) * p, rz_new
+    return x, maxiter
+
+
+def greedy_phase(swelling, dev, torch, dia_kernel, ell_products):
+    """Phase 10: ``amg_setup(coords=None)`` on swelling N=80's solid block,
+    then ``pcg`` with it on the card and on the CPU from one right-hand side."""
+    import copy
+
+    import numpy as np
+
+    from porotpu_torch.precond.amg import amg_setup, rigid_body_modes
+    from porotpu_torch.precond.inner import InnerConfig
+
+    print(f"-- greedy AMG: the solid block of swelling {' '.join(GREEDY_RUN)}", flush=True)
+    # the block as assembled: symmetric positive definite (its BC-applied
+    # copy has its Dirichlet rows zeroed and not its columns, which CG
+    # cannot take), with the rigid-body modes of its nodes
+    prob = swelling.setup(GREEDY_RUN + ["--device", "cpu"])
+    prob.assembler.assemble()
+    A = prob.assembler.P_blocks[("s", "s")].tocsr()
+    B = rigid_body_modes(prob.W.space("s").node_coords)
+    cfg = InnerConfig()  # the drivers' AMG settings
+    t0 = time.perf_counter()
+    amg = amg_setup(
+        A, dofs_per_node=prob.mesh.dim, B=B, theta=cfg.amg_theta,
+        coarse_size=cfg.amg_coarse_size, presmooth=cfg.amg_presmooth,
+        postsmooth=cfg.amg_postsmooth, smooth_degree=cfg.amg_smooth_degree,
+        cheb_lower=cfg.amg_cheb_lower, p_drop_tol=cfg.amg_p_drop, dtype=torch.float64,
+    )
+    setup_s = time.perf_counter() - t0
+    check(len(amg.levels) >= 1, "greedy AMG built no level")
+    fmt = lambda op: type(op).__name__ + (  # noqa: E731
+        f"({type(op.inner).__name__})" if type(op).__name__ == "Transposed" else "")
+    print(f"host setup {setup_s:.2f} s for {A.shape[0]} rows; {len(amg.levels)} levels, "
+          f"coarse dense {tuple(amg.coarse_inv.shape)}")
+    for k, lv in enumerate(amg.levels):
+        print(f"  level {k}: A {tuple(lv.A.shape)} {fmt(lv.A)}, P {tuple(lv.P.shape)} "
+              f"{fmt(lv.P)}")
+    cpu = copy.deepcopy(amg)
+    amg = amg.to(dev)
+    b = np.random.default_rng(7).normal(size=A.shape[0])
+    out = {}
+    with torch.inference_mode():
+        for where, m in (("cuda", amg), ("cpu", cpu)):
+            bt = torch.as_tensor(b, dtype=torch.float64, device=dev if where == "cuda" else "cpu")
+            dia_kernel.reset_counts()
+            ell_products.clear()
+            t0 = time.perf_counter()
+            x, its = pcg(m.levels[0].A.matvec, m, bt, GREEDY_RTOL)
+            if where == "cuda":
+                torch.cuda.synchronize()
+            out[where] = (x.cpu().numpy(), its, time.perf_counter() - t0,
+                          dict(dia_kernel.COUNTS), sum(ell_products.values()))
+    (xg, itg, tg, cg_counts, ellg), (xc, itc, tc, _, _) = out["cuda"], out["cpu"]
+    err = np.abs(xg - xc).max() / np.abs(xc).max()
+    print(f"pcg rtol {GREEDY_RTOL:g}: card {itg} iterations in {tg:.3f} s, CPU {itc} in "
+          f"{tc:.3f} s; max rel diff of x {err:.2e}; card counts {cg_counts}, ELL products "
+          f"{ellg}", flush=True)
+    check(itg == itc, f"greedy AMG pcg: {itg} iterations on the card, {itc} on the CPU")
+    check(err <= 1e-10, f"greedy AMG pcg: card and CPU solutions differ ({err:.2e})")
+    check(np.isfinite(xg).all(), "greedy AMG pcg: non-finite solution")
+    check(cg_counts["dia_mv"] > 0 and cg_counts["plain"] == 0,
+          f"greedy AMG pcg: K1 {cg_counts['dia_mv']} launches, {cg_counts['plain']} plain")
 
 
 def main():
@@ -697,12 +859,22 @@ def main():
     # -- 8. the reference drivers' path, f64 --------------------------------
     from porotpu_torch.drivers import footing, swelling
     from porotpu_torch.ops.sparse import ELL_PRODUCTS
+    from porotpu_torch.precond import inner
 
+    # the inner FGMRES iterations of each fgmres+fs apply
+    inner_iters, fgmres = [], inner.fgmres
+
+    def counted_fgmres(*args, **kwargs):
+        res = fgmres(*args, **kwargs)
+        inner_iters.append(res.iters)
+        return res
+
+    inner.fgmres = counted_fgmres
     drivers_by_name = {"swelling": swelling, "footing": footing}
     held, mismatches = [], []
     for label, drv, argv, dofs, oracle, k2 in DRIVER_RUNS:
         out = driver_run(label, drivers_by_name[drv], argv, dofs, oracle, k2, dev, torch,
-                         dia_kernel, ELL_PRODUCTS, FieldwiseTest, mb, peaks)
+                         dia_kernel, ELL_PRODUCTS, inner_iters, FieldwiseTest, mb, peaks)
         pc = out["problem"].pc
         if label == "swelling_exact":
             check(pc.solve_s.kind == "lu" and pc.solve_fp.kind == "lu",
@@ -710,6 +882,20 @@ def main():
         if label == "swelling_3way_exact":
             kinds = [s.kind for s in (pc.solve_s, pc.solve_f, pc.solve_p, pc.solve_diff)]
             check(kinds == ["lu"] * 4, f"3-way petsc-options-exact built inner kinds {kinds}")
+        if label.endswith("qexact"):
+            # every block falls back from lu to 60 cg+amg iterations; the
+            # 2-way fp block is the fgmres+fs solve
+            solves = ([pc.solve_s, pc.solve_f, pc.solve_p, pc.solve_diff] if pc.three_way
+                      else [pc.solve_s, pc.solve_fp.mods["fs"].solve_f])
+            kinds = [(s.kind, s.iters) for s in solves]
+            want = [("cg+amg", 60)] * 4 if pc.three_way else [("cg+amg", 60), ("cg+amg", 20)]
+            check(kinds == want, f"{label}: inner solves {kinds}, expected {want}")
+            if not pc.three_way:
+                check(pc.solve_fp.kind == "fgmres+fs" and pc.solve_fp.iters == 60,
+                      f"{label}: fp solve {pc.solve_fp.kind} x {pc.solve_fp.iters}")
+                check(len(out["fp_iters"]) == sum(out["iterations"])
+                      and 0 < max(out["fp_iters"]) <= 60,
+                      f"{label}: inner FGMRES iterations {out['fp_iters']}")
         check(pc.three_way == ("3way" in label), f"{label}: three_way is {pc.three_way}")
         del pc
         held += [(label, *h) for h in out["held"]]
@@ -742,6 +928,9 @@ def main():
     check(len(dflt["cuda"][0]) == 3 and dflt["cuda"][0] == dflt["cpu"][0],
           "full-residual iteration counts differ between card and CPU")
     check(err <= 1e-10, "full-residual solutions differ between card and CPU")
+
+    # -- 10. AMG without coordinates: greedy aggregation ----------------------
+    greedy_phase(swelling, dev, torch, dia_kernel, ELL_PRODUCTS)
     check(not mismatches, "; ".join(mismatches))
     check_imports()
 
