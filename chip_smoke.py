@@ -94,7 +94,7 @@
    iterations at most on the saddle fp operator, stopped at rtol 1e-12,
    preconditioned by the Schur fieldsplit with 20 cg+amg fluid
    iterations and a dense-LU Schur part), footing N=20 2-way undrained
-   (27; K2 as the walk of its operators says) and swelling N=80
+   (27; no banded transpose, no K2) and swelling N=80
    ``diagonal 3-way`` (6; every block cg+amg at 60 iterations).  Each run
    also prints its host syncs in the solve (``torch.cuda``'s sync debug
    mode, one warning a sync) and the inner FGMRES iterations of each fp
@@ -120,19 +120,20 @@ was imported.  The last two stdout lines are the JSON kernel record and
 """
 
 import collections
+import contextlib
 import gc
 import json
 import os
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # phase 8: label, driver, command line, dofs, porotpu's f64 iterations at
 # t=0.1 (output/SUMMARY.md; dofs from output/robustness-2d-*.out) and
-# whether the run holds banded transposes (True: K2 must launch; False:
-# none may exist and K2 must not launch; None: K2 launches exactly when
-# the walk of the run's operators finds one)
+# whether the run holds banded transposes (then K2 must launch; else none
+# may exist and K2 must not launch)
 DRIVER_RUNS = (
     ("swelling_inexact", "swelling",
      ["-N", "80", "--petsc-options", "petsc-options-inexact"], 110245, [16], True),
@@ -156,12 +157,14 @@ DRIVER_RUNS = (
      ["-N", "20", "--petsc-options", "petsc-options-inexact", "--pc-type", "undrained 3-way"],
      31520, [248], True),
     # the quasi-exact protocol (paper-scripts/robustness_2d.sh's qexact
-    # cells): the fp block is the fgmres+fs solve, the 3-way blocks cg+amg
+    # cells): the fp block is the fgmres+fs solve, the 3-way blocks cg+amg;
+    # footing's fp operator and prolongators store ELL, as in its 2-way
+    # inexact run
     ("swelling_qexact", "swelling",
      ["-N", "80", "--petsc-options", "petsc-options-exact-iterative"], 110245, [7], True),
     ("footing_qexact", "footing",
      ["-N", "20", "--petsc-options", "petsc-options-exact-iterative", "--pc-type", "undrained"],
-     31520, [27], None),
+     31520, [27], False),
     ("swelling_3way_qexact", "swelling",
      ["-N", "80", "--petsc-options", "petsc-options-exact-iterative",
       "--pc-type", "diagonal 3-way"], 110245, [6], True),
@@ -327,30 +330,19 @@ def time_heaviest_ell(ops, ell, dev, torch, mb, peaks):
               f"{ell[key] * (ms - b_ms):.1f} ms", flush=True)
 
 
+@contextlib.contextmanager
 def count_syncs(torch):
-    """A context manager that counts the host syncs torch.cuda reports in
-    its sync debug mode (one warning a synchronizing call) into
-    ``.n``."""
-    import contextlib
-    import warnings
-
-    class Counter(contextlib.ContextDecorator):
-        n = 0
-
-        def __enter__(self):
-            self._w = warnings.catch_warnings(record=True)
-            self._log = self._w.__enter__()
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            return self
-
-        def __exit__(self, *exc):
+    """Count into ``["n"]`` the host syncs torch.cuda reports in its sync
+    debug mode, one warning a synchronizing call."""
+    counter = {"n": 0}
+    with warnings.catch_warnings(record=True) as log:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield counter
+        finally:
             torch.cuda.set_sync_debug_mode("default")
-            self.n = sum("synchroniz" in str(w.message) for w in self._log)
-            self._w.__exit__(*exc)
-            return False
-
-    return Counter()
+            counter["n"] = sum("synchroniz" in str(w.message) for w in log)
 
 
 def driver_run(label, drv, argv, dofs, oracle, k2, dev, torch, dia_kernel, ell_products,
@@ -359,8 +351,7 @@ def driver_run(label, drv, argv, dofs, oracle, k2, dev, torch, dia_kernel, ell_p
     counts reset just before and read just after, then ``print_timings()``.
     Checks the dofs, the true-residual guard at the problem's own
     tolerances, K1 > 0 in f64, no plain product, and K2 as the run expects
-    (``k2``: launched; no banded transpose and no launch; or, for None,
-    launched exactly when the run holds a banded transpose).  Prints the
+    (``k2``: launched, or no banded transpose and no launch).  Prints the
     host syncs of the solve and the inner FGMRES iterations of each
     ``fgmres+fs`` apply (``inner_iters``, filled by the caller's hook).
     Returns the
@@ -409,7 +400,7 @@ def driver_run(label, drv, argv, dofs, oracle, k2, dev, torch, dia_kernel, ell_p
     print("dispatch counts in the solve: " + ", ".join(f"{k}={v}" for k, v in counts.items())
           + f"; K1+K2 launches an iteration {k12 / max(its, 1):.1f} (K1 "
           f"{counts['dia_mv'] / max(its, 1):.1f}, K2 {counts['dia_rmv'] / max(its, 1):.1f})")
-    print(f"host syncs in the solve: {syncs.n} ({syncs.n / max(its, 1):.1f} an iteration)")
+    print(f"host syncs in the solve: {syncs['n']} ({syncs['n'] / max(its, 1):.1f} an iteration)")
     if fp_iters:
         print(f"inner fgmres+fs: {len(fp_iters)} applies, iterations an apply "
               f"min {min(fp_iters)} max {max(fp_iters)}, total {sum(fp_iters)}")
@@ -441,8 +432,6 @@ def driver_run(label, drv, argv, dofs, oracle, k2, dev, torch, dia_kernel, ell_p
     transposes = banded_transposes(ops)
     print(f"banded operators applied transposed (K2's): {len(transposes)}; "
           f"DIA {len(ops['DIA'])}, ELL {len(ops['ELL'])}, Transposed {len(ops['Transposed'])}")
-    if k2 is None:
-        k2 = bool(transposes)
     if k2:
         check(counts["dia_rmv"] > 0, f"{label}: K2 was never launched")
     else:
