@@ -362,6 +362,7 @@ def driver_run(label, drv, argv, dofs, oracle, k2, dev, torch, dia_kernel, ell_p
     import numpy as np
 
     print(f"-- {label}: python -m {drv.__name__} {' '.join(argv)}", flush=True)
+    before = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
     problem = drv.setup(_argv(argv))
     t_problem = time.perf_counter() - t0
@@ -393,7 +394,8 @@ def driver_run(label, drv, argv, dofs, oracle, k2, dev, torch, dia_kernel, ell_p
     n_scalar = sum(scalar.values())
     print(f"dofs={n} padded sizes={problem.padded_sizes}; problem built in {t_problem:.2f} s, "
           f"host setup {problem.t_setup:.2f} s, solve {problem.t_solve_total:.4f} s; "
-          f"peak device memory {peak / 2**20:.1f} MiB")
+          f"peak device memory {peak / 2**20:.1f} MiB, net of the {before / 2**20:.1f} MiB "
+          f"held before the run {(peak - before) / 2**20:.1f} MiB")
     print(f"iterations={iterations} (porotpu {oracle}) converged={res.converged} "
           f"residual={res.res:.4e}")
     print("residual history:", " ".join(f"{h:.4e}" for h in hist))
@@ -461,8 +463,8 @@ def driver_run(label, drv, argv, dofs, oracle, k2, dev, torch, dia_kernel, ell_p
     print(f"sets held against the plain version: {len(held)}, "
           f"{100 * share:.1f}% of the run's K1+K2 launches", flush=True)
     out = dict(iterations=iterations, launches=launches, scalar=scalar, counts=counts, held=held,
-               solve_s=problem.t_solve_total, setup_s=problem.t_setup, peak_mib=peak / 2**20,
-               fp_iters=fp_iters)
+               solve_s=problem.t_solve_total, setup_s=problem.t_setup,
+               peak_mib=(peak - before) / 2**20, fp_iters=fp_iters)
     out["problem"] = problem
     return out
 
@@ -874,9 +876,9 @@ def main():
         if label.endswith("qexact"):
             # every block falls back from lu to 60 cg+amg iterations; the
             # 2-way fp block is the fgmres+fs solve
-            solves = ([pc.solve_s, pc.solve_f, pc.solve_p, pc.solve_diff] if pc.three_way
-                      else [pc.solve_s, pc.solve_fp.mods["fs"].solve_f])
-            kinds = [(s.kind, s.iters) for s in solves]
+            kinds = [(s.kind, s.iters) for s in (
+                [pc.solve_s, pc.solve_f, pc.solve_p, pc.solve_diff] if pc.three_way
+                else [pc.solve_s, pc.solve_fp.mods["fs"].solve_f])]
             want = [("cg+amg", 60)] * 4 if pc.three_way else [("cg+amg", 60), ("cg+amg", 20)]
             check(kinds == want, f"{label}: inner solves {kinds}, expected {want}")
             if not pc.three_way:

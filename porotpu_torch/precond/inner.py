@@ -6,10 +6,11 @@ product); ``chebyshev`` and ``cg`` (fixed-iteration, Jacobi
 preconditioned); ``amg`` (preonly V-cycles, the bench path's hypre
 stand-in); ``cg+amg`` (fixed-iteration CG preconditioned by one V-cycle,
 the drivers' default); ``plus-diag`` (the additive composite of the dcc
-Schur solver); ``fgmres+fs`` (the quasi-exact fluid-pressure solve: a
-fixed-iteration FGMRES on the saddle fp operator, preconditioned by the
-Schur fieldsplit, to rtol 1e-12).  Every banded product goes through
-``ops.dia`` (K1, or K2 for a transpose, on the card).
+Schur solver); ``fgmres+fs`` (the quasi-exact fluid-pressure solve:
+FGMRES on the saddle fp operator, preconditioned by the Schur
+fieldsplit, until rtol 1e-12 or its iteration count).  Every banded
+product goes through ``ops.dia`` (K1, or K2 for a transpose, on the
+card).
 """
 
 from __future__ import annotations
