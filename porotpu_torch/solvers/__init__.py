@@ -1,1 +1,7 @@
 """See the package docstring of porotpu_torch."""
+
+from .basic import preonly, richardson
+from .cg import cg
+from .chebyshev import chebyshev, estimate_spectrum
+from .gmres import fgmres, gmres
+from .result import SolveResult

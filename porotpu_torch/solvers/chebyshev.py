@@ -1,15 +1,34 @@
-"""Chebyshev semi-iteration (porotpu/solvers/chebyshev.py:chebyshev).
+"""Chebyshev semi-iteration and spectrum estimation (porotpu/solvers/chebyshev.py).
 
-The inner solve of the ``chebyshev`` kind: a fixed polynomial in M^-1 A
+``chebyshev`` is the inner solve of the ``chebyshev`` kind: a fixed polynomial in M^-1 A
 over [lmin, lmax], the three-term recurrence of Saad, "Iterative
 Methods", algorithm 12.1.  The recurrence scalars are host floats, so the
 loop never reads a value back from the device.  The bounds come from the
-host's power iteration at setup (``precond.amg._power_lmax``).
+host's power iteration at setup (``precond.amg._power_lmax``);
+``estimate_spectrum`` is porotpu's device power iteration, from a seeded
+torch start vector where porotpu draws it from ``jax.random``.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def estimate_spectrum(A, n, iters=20, M=None, key=None, dtype=torch.float32,
+                      device="cpu"):
+    """Estimate lambda_max of (M^-1 A) by power iteration (setup): the norm
+    of the last iterate, as a float.  ``key`` seeds the start vector."""
+    if M is None:
+        M = lambda r: r  # noqa: E731
+    gen = torch.Generator().manual_seed(0 if key is None else int(key))
+    v = torch.randn(n, generator=gen, dtype=dtype).to(device)
+    v = v / torch.linalg.norm(v)
+    nw = torch.zeros((), dtype=dtype, device=device)
+    for _ in range(iters):
+        w = M(A(v))
+        nw = torch.linalg.norm(w)
+        v = w / torch.where(nw > 0, nw, torch.ones_like(nw))
+    return float(nw)
 
 
 def chebyshev(A, b, lmin, lmax, iters=10, M=None, x0=None):

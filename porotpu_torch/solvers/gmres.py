@@ -1,8 +1,10 @@
-"""Flexible GMRES with right preconditioning (porotpu/solvers/gmres.py:fgmres).
+"""GMRES and flexible GMRES with right preconditioning (porotpu/solvers/gmres.py).
 
-The Krylov basis V (m+1, n) and the preconditioned directions Z (m, n)
-live on the device; orthogonalization is CGS2 (two classical Gram-Schmidt
-passes as torch.matmul).  The small Hessenberg problem — the Givens
+The Krylov basis V (m+1, n) and, for ``fgmres``, the preconditioned
+directions Z (m, n) live on the device; ``gmres`` keeps no Z and
+reconstructs x = x0 + M(V y) at the end of each cycle.
+Orthogonalization is CGS2 (two classical Gram-Schmidt passes as
+torch.matmul).  The small Hessenberg problem — the Givens
 recurrence, the masked triangular solve and the residual estimate — runs
 on the host in the solve's dtype: its column arrives with the one host
 sync each iteration makes for the convergence check.  JAX's
@@ -14,7 +16,7 @@ residual, reconstructed lazily once the 2-norm bound admits convergence
 (porotpu/solvers/gmres.py:139-168).
 
 Anderson acceleration of the PC output (``pc_accel_order``) is not
-ported; it is 0 on the bench path.
+ported yet (ROADMAP M7.3).
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ def _fieldwise_check(fw: FieldwiseTest, r, atol, rtol):
     return bool(done_h), ea_h
 
 
-def _fgmres_impl(A, b, x0, M, restart, rtol, atol, maxiter, fieldwise, divtol):
+def _gmres_impl(A, b, x0, M, restart, rtol, atol, maxiter, flexible, fieldwise, divtol):
     n = b.shape[0]
     dt = _np_dtype(b.dtype)
     m = restart
@@ -74,7 +76,7 @@ def _fgmres_impl(A, b, x0, M, restart, rtol, atol, maxiter, fieldwise, divtol):
         history[it0] = res
         V = b.new_zeros((m + 1, n))
         V[0] = r0 / beta_t if beta > 0 else r0
-        Z = b.new_zeros((m, n))
+        Z = b.new_zeros((m, n)) if flexible else None
         H = np.zeros((m + 1, m), dtype=dt)  # rotated (upper triangular R)
         Ho = np.zeros((m + 1, m), dtype=dt) if fieldwise is not None else None
         cs = np.zeros((m,), dtype=dt)
@@ -86,7 +88,8 @@ def _fgmres_impl(A, b, x0, M, restart, rtol, atol, maxiter, fieldwise, divtol):
         while not done and not div and k < m and it0 + k < maxiter:
             z = M(V[k])
             w = A(z)
-            Z[k] = z
+            if flexible:
+                Z[k] = z
             Vk = V[: k + 1]
             h1 = Vk @ w
             w = w - h1 @ Vk
@@ -135,11 +138,13 @@ def _fgmres_impl(A, b, x0, M, restart, rtol, atol, maxiter, fieldwise, divtol):
             history[it0 + k + 1] = res
             k += 1
 
-        if k > 0:
-            y = _triangular_coeffs(H, g, k, m)
-            x = x0c + torch.from_numpy(y[:k]).to(b.device) @ Z[:k]
+        if k == 0:
+            return x0c, it0, res, done, div
+        y = torch.from_numpy(_triangular_coeffs(H, g, k, m)[:k]).to(b.device)
+        if flexible:
+            x = x0c + y @ Z[:k]
         else:
-            x = x0c
+            x = x0c + M(y @ V[:k])
         return x, it0 + k, res, done, div
 
     r_init = b - A(x0)
@@ -153,6 +158,18 @@ def _fgmres_impl(A, b, x0, M, restart, rtol, atol, maxiter, fieldwise, divtol):
     while not done and not div and it < maxiter:
         x, it, res, done, div = cycle(x, it)
     return SolveResult(x, it, res, done, history, div)
+
+
+def _run(A, b, x0, M, restart, rtol, atol, maxiter, flexible, fieldwise, divtol):
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    if M is None:
+        M = lambda r: r  # noqa: E731
+    if restart is None:
+        restart = maxiter
+    restart = min(restart, maxiter)
+    return _gmres_impl(A, b, x0, M, restart, rtol, atol, maxiter, flexible, fieldwise,
+                       divtol)
 
 
 def fgmres(
@@ -172,11 +189,20 @@ def fgmres(
     ``divtol``: exit with result.diverged=True once the residual exceeds it
     (reference lib/Solver.py:46-48, PETSc default 1e20).
     """
-    if x0 is None:
-        x0 = torch.zeros_like(b)
-    if M is None:
-        M = lambda r: r  # noqa: E731
-    if restart is None:
-        restart = maxiter
-    restart = min(restart, maxiter)
-    return _fgmres_impl(A, b, x0, M, restart, rtol, atol, maxiter, fieldwise, divtol)
+    return _run(A, b, x0, M, restart, rtol, atol, maxiter, True, fieldwise, divtol)
+
+
+def gmres(
+    A,
+    b,
+    x0=None,
+    M=None,
+    restart=None,
+    rtol=1e-6,
+    atol=0.0,
+    maxiter=100,
+    fieldwise: FieldwiseTest | None = None,
+    divtol=1e20,
+):
+    """Right-preconditioned GMRES for a constant M: x = x0 + M(V y) per cycle."""
+    return _run(A, b, x0, M, restart, rtol, atol, maxiter, False, fieldwise, divtol)
