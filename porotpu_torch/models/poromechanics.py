@@ -5,14 +5,15 @@ Assembly is the port's copy of porotpu's ``PoromechanicsAssembler``
 layout, near-nullspaces, coordinates) copies porotpu's.  The solver state — the block operator ``A_dev`` and
 the block preconditioner ``pc`` — is a tree of ``nn.Module``s built on
 the host and moved to ``device`` in one ``.to``.  Each time step is one
-right-preconditioned FGMRES solve.
+outer solve: FGMRES (``solver type`` gmres or fgmres), CG or AAR.
 
 Ported: the 2-way block preconditioner with the inexact Schur
 fieldsplit or the exact fluid-pressure block (dense LU, or above its cap
 the quasi-exact ``fgmres+fs`` solve), the 3-way block
 preconditioner (its pressure-diffusion block ``P_diff``), a ``pc dtype``
 below the solve dtype (the PC built at that dtype under ``CastPC``),
-solver types gmres/fgmres (both run flexible GMRES), both RHS modes
+solver types gmres/fgmres (both run flexible GMRES), cg and aar,
+Anderson acceleration of the PC output (``inner accel order``), both RHS modes
 (``loads-only`` and the reference drivers' ``full-residual``, whose
 history products run on the device operators ``H_dev``), ``solver
 chunk`` and ``print_timings``.  The other branches raise NotImplementedError naming
@@ -37,6 +38,8 @@ from ..precond.amg import rigid_body_modes
 from ..precond.block import BlockPreconditioner, CastPC
 from ..precond.inner import ITERATED, InnerConfig, InnerSolver, build_inner_solver
 from ..precond.schur import build_schur_fieldsplit
+from ..solvers.aar import aar
+from ..solvers.cg import cg
 from ..solvers.convergence import FieldwiseTest
 from ..solvers.gmres import fgmres
 from .abstract import AbstractPhysics, log
@@ -528,15 +531,16 @@ class Poromechanics(AbstractPhysics):
 
         Unlike porotpu (ADVICE r5, poromechanics.py:799), the options-DB
         ``global_`` overrides are applied BEFORE ``solver chunk`` splits
-        maxiter, so an overridden maxiter is what gets chunked.
+        maxiter, so an overridden maxiter is what gets chunked, and the
+        chunk rule is decided on the solver type they leave: ``aar`` is
+        never chunked, ``cg`` runs its chunks as warm restarts, and a
+        gmres/fgmres chunk must be a multiple of the restart length.
+        Every options file sets ``-global_ksp_type gmres``, which shadows
+        ``solver type`` as in porotpu (:790-795).
         """
         p = self.parameters
         if p.get("inner monitor", False):
             raise NotImplementedError("inner monitors are not ported yet (ROADMAP M7.6)")
-        if int(p.get("inner accel order", 0)) != 0:
-            raise NotImplementedError(
-                "Anderson acceleration ('inner accel order') is not ported yet (ROADMAP M7.3)"
-            )
         solver_type = p.get("solver type", "gmres")
         rtol = float(p.get("solver rtol", 1e-6))
         atol = float(p.get("solver atol", 1e-8))
@@ -553,18 +557,18 @@ class Poromechanics(AbstractPhysics):
                 atol = float(g["ksp_atol"])
             if g.get("ksp_max_it"):
                 maxiter = int(g["ksp_max_it"])
-        if solver_type not in ("gmres", "fgmres"):
-            raise NotImplementedError(
-                f"solver type {solver_type!r} is not ported yet (ROADMAP M7.3)"
+        if solver_type not in ("aar", "cg", "gmres", "fgmres"):
+            raise ValueError(
+                f"unknown solver type {solver_type!r}; types: aar, cg, gmres, fgmres"
             )
         restart = int(p.get("gmres restart", min(50, maxiter)))
         # "solver chunk": ceil(maxiter/chunk) warm-started calls of a
-        # chunk-maxiter solve — identical to one long solve only when the
-        # chunk is a multiple of the restart length
+        # chunk-maxiter solve — identical to one long gmres solve only when
+        # the chunk is a multiple of the restart length
         chunk = int(p.get("solver chunk", 0))
         self._solve_chunks = 1
-        if chunk > 0:
-            if chunk % min(restart, chunk) != 0:
+        if chunk > 0 and solver_type != "aar":
+            if solver_type != "cg" and chunk % min(restart, chunk) != 0:
                 raise ValueError(
                     f"solver chunk {chunk} must be a multiple of the gmres restart {restart}"
                 )
@@ -574,10 +578,37 @@ class Poromechanics(AbstractPhysics):
         use_fieldwise = bool(p.get("fieldwise convergence", True))
         sizes = self.padded_sizes
         divtol = float(p.get("solver divtol", 1e20))
+        accel = int(p.get("inner accel order", 0))
 
         @torch.inference_mode()
         def _solve(b, x0):
+            if solver_type == "aar":
+                return aar(
+                    self.A_dev.matvec,
+                    b,
+                    M=self.pc,
+                    x0=x0,
+                    order=int(p.get("AAR order", 10)),
+                    p=int(p.get("AAR p", 5)),
+                    omega=float(p.get("AAR omega", 1.0)),
+                    beta=float(p.get("AAR beta", 1.0)),
+                    rtol=rtol,
+                    atol=atol,
+                    maxiter=maxiter,
+                    pc_accel_order=accel,
+                    divtol=divtol,
+                    monitor=bool(p.get("solver monitor", False)),
+                )
             fw = FieldwiseTest.from_sizes(sizes, b) if use_fieldwise else None
+            if solver_type == "cg":
+                return cg(
+                    self.A_dev.matvec, b, x0=x0, M=self.pc, rtol=rtol, atol=atol,
+                    maxiter=maxiter, fieldwise=fw, divtol=divtol,
+                )
+            # gmres and fgmres both run flexible GMRES, as porotpu's: the
+            # inner solves make the PC non-constant.  With "inner accel
+            # order" the mixed PC output adds only stored directions, so
+            # the trace is the one without it (porotpu :845-856)
             return fgmres(
                 self.A_dev.matvec,
                 b,
@@ -589,6 +620,7 @@ class Poromechanics(AbstractPhysics):
                 maxiter=maxiter,
                 fieldwise=fw,
                 divtol=divtol,
+                pc_accel_order=accel,
             )
 
         self._solve = _solve

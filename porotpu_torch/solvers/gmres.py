@@ -15,8 +15,11 @@ Convergence is on the unpreconditioned residual 2-norm or, with
 residual, reconstructed lazily once the 2-norm bound admits convergence
 (porotpu/solvers/gmres.py:139-168).
 
-Anderson acceleration of the PC output (``pc_accel_order``) is not
-ported yet (ROADMAP M7.3).
+``pc_accel_order`` Anderson-mixes the PC output of every iteration
+(the reference's "inner accel order", lib/Preconditioner.py:248-249)
+through one accelerator state that lives for the whole call and is
+carried across restarts; ``gmres``'s final apply M(V y) goes through it
+too (porotpu/solvers/gmres.py:186-190).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 import scipy.linalg as sla
 import torch
 
+from .anderson import AndersonAccelerator
 from .convergence import FieldwiseTest
 from .result import SolveResult
 
@@ -49,7 +53,8 @@ def _fieldwise_check(fw: FieldwiseTest, r, atol, rtol):
     return bool(done_h), ea_h
 
 
-def _gmres_impl(A, b, x0, M, restart, rtol, atol, maxiter, flexible, fieldwise, divtol):
+def _gmres_impl(A, b, x0, M, restart, rtol, atol, maxiter, flexible, fieldwise, divtol,
+                pc_accel_order):
     n = b.shape[0]
     dt = _np_dtype(b.dtype)
     m = restart
@@ -62,8 +67,11 @@ def _gmres_impl(A, b, x0, M, restart, rtol, atol, maxiter, flexible, fieldwise, 
         b0max = dt.type(torch.max(fieldwise.b0_norms).item())
         fw_tol = np.maximum(dt.type(atol), dt.type(rtol) * b0max)
         fw_tol = fw_tol * np.sqrt(dt.type(n))
+    acc = AndersonAccelerator(pc_accel_order) if pc_accel_order > 0 else None
+    ast = acc.init(n, b.dtype, b.device) if acc else None
 
     def cycle(x0c, it0):
+        nonlocal ast
         r0 = b - A(x0c)
         beta_t = torch.linalg.norm(r0)
         if fieldwise is not None:
@@ -87,6 +95,8 @@ def _gmres_impl(A, b, x0, M, restart, rtol, atol, maxiter, flexible, fieldwise, 
         k = 0
         while not done and not div and k < m and it0 + k < maxiter:
             z = M(V[k])
+            if acc is not None:
+                ast, z = acc.step(ast, z)
             w = A(z)
             if flexible:
                 Z[k] = z
@@ -144,7 +154,12 @@ def _gmres_impl(A, b, x0, M, restart, rtol, atol, maxiter, flexible, fieldwise, 
         if flexible:
             x = x0c + y @ Z[:k]
         else:
-            x = x0c + M(y @ V[:k])
+            dx = M(y @ V[:k])
+            if acc is not None:
+                # the final apply goes through the same accelerated PC
+                # (porotpu/solvers/gmres.py:186-190)
+                ast, dx = acc.step(ast, dx)
+            x = x0c + dx
         return x, it0 + k, res, done, div
 
     r_init = b - A(x0)
@@ -160,7 +175,8 @@ def _gmres_impl(A, b, x0, M, restart, rtol, atol, maxiter, flexible, fieldwise, 
     return SolveResult(x, it, res, done, history, div)
 
 
-def _run(A, b, x0, M, restart, rtol, atol, maxiter, flexible, fieldwise, divtol):
+def _run(A, b, x0, M, restart, rtol, atol, maxiter, flexible, fieldwise, divtol,
+         pc_accel_order):
     if x0 is None:
         x0 = torch.zeros_like(b)
     if M is None:
@@ -169,7 +185,7 @@ def _run(A, b, x0, M, restart, rtol, atol, maxiter, flexible, fieldwise, divtol)
         restart = maxiter
     restart = min(restart, maxiter)
     return _gmres_impl(A, b, x0, M, restart, rtol, atol, maxiter, flexible, fieldwise,
-                       divtol)
+                       divtol, pc_accel_order)
 
 
 def fgmres(
@@ -183,13 +199,18 @@ def fgmres(
     maxiter=100,
     fieldwise: FieldwiseTest | None = None,
     divtol=1e20,
+    pc_accel_order: int = 0,
 ):
     """Flexible GMRES, right-preconditioned (stores the Z directions).
 
     ``divtol``: exit with result.diverged=True once the residual exceeds it
     (reference lib/Solver.py:46-48, PETSc default 1e20).
+    ``pc_accel_order``: Anderson-accelerate the PC output every iteration.
+    The mixed direction lies in the span of the stored ones plus the new
+    one, so the residual trace is the same as without it.
     """
-    return _run(A, b, x0, M, restart, rtol, atol, maxiter, True, fieldwise, divtol)
+    return _run(A, b, x0, M, restart, rtol, atol, maxiter, True, fieldwise, divtol,
+                pc_accel_order)
 
 
 def gmres(
@@ -203,6 +224,15 @@ def gmres(
     maxiter=100,
     fieldwise: FieldwiseTest | None = None,
     divtol=1e20,
+    pc_accel_order: int = 0,
 ):
-    """Right-preconditioned GMRES for a constant M: x = x0 + M(V y) per cycle."""
-    return _run(A, b, x0, M, restart, rtol, atol, maxiter, False, fieldwise, divtol)
+    """Right-preconditioned GMRES for a constant M: x = x0 + M(V y) per cycle.
+
+    With ``pc_accel_order`` the PC is no longer constant and the
+    reconstruction no longer matches the directions that built H: the
+    returned x is wrong, as the reference's non-flexible gmres returns it
+    (swelling.py:75 warns of it; porotpu pins it in
+    tests/test_ops_solvers.py::test_gmres_pc_accel_order).
+    """
+    return _run(A, b, x0, M, restart, rtol, atol, maxiter, False, fieldwise, divtol,
+                pc_accel_order)

@@ -36,6 +36,7 @@ import torch
 from porotpu.models import benchmarks as jbench
 from porotpu.utils.options import OptionsDB as JOptionsDB
 from porotpu.utils.parser import Parser as JParser
+from porotpu_torch.drivers import swelling
 from porotpu_torch.models import benchmarks
 from porotpu_torch.solvers.convergence import FieldwiseTest
 from porotpu_torch.utils.options import OptionsDB
@@ -252,7 +253,11 @@ def _swelling_2d(**overrides):
 @pytest.mark.parametrize(
     "what,attempt",
     [
-        ("'cg'.*M7\\.3", lambda: _swelling_2d(**{"solver type": "cg"}).create_solver()),
+        # outer cg is ported (ROADMAP M7.3): this case now drives the
+        # --inner-monitor flag through the driver's parser
+        ("monitors.*M7\\.6",
+         lambda: swelling.setup(["-N", "2", "--inner-monitor", "--device", "cpu"])
+         .create_solver()),
         ("solver cache.*M7\\.5",
          lambda: _swelling_2d(**{"solver cache path": "unused"}).create_solver()),
         ("export.*M7\\.5", lambda: _swelling_2d(**{"output solutions": True})),

@@ -1,15 +1,33 @@
-"""Port parity for ROADMAP M7.3, the solvers without acceleration:
-porotpu_torch against porotpu on the same numpy inputs made from a seed,
-f64 on the CPU.
+"""Port parity for ROADMAP M7.3: the outer solvers porotpu's ``solvers/`` has
+beyond FGMRES, porotpu_torch against porotpu on the same numpy inputs
+made from a seed, f64 on the CPU.
 
 - ``cg``: the 2-norm and the field-wise stop, ``divtol`` and a p.Ap of
   zero: the same iterations, the f32 history to 1e-6 relative, x to 1e-10.
-- ``gmres`` (no Z, x = x0 + M(V y)): iterations, history and x.
+- ``gmres`` (no Z, x = x0 + M(V y)) with and without ``pc_accel_order`` on
+  the inputs of porotpu's ``test_gmres_pc_accel_order``, and ``fgmres``
+  with ``pc_accel_order`` 1 and 2: iterations, history and x.
+- ``gram_ls_alpha`` to 1e-12, and ``AndersonAccelerator.step`` over a
+  linear fixed point with a stagnating pair in it: every output, the
+  history count and the final rings.
+- ``aar`` at orders 0 and 10 with a p that mixes and a p that does not,
+  and ``pc_accel_order`` 1 (order 0 over a whole run; order 10 over its
+  first three iterations, after which the Gram matrix of the mixed history
+  is singular to rounding on both sides); ``monitor``'s [R]/[A] lines
+  equal porotpu's.
 - ``preonly``, ``richardson`` and ``estimate_spectrum``.
+- The model at swelling N=3 through the port's driver ``setup`` against
+  porotpu's: ``--solver-type aar``, ``--solver-type cg`` under ``solver
+  maxiter`` 20, and ``--solver-type aar --petsc-options
+  petsc-options-inexact --inner-accel-order 1``, where the options file's
+  ``-global_ksp_type gmres`` shadows aar on both sides; ``solver chunk``
+  for cg and aar as porotpu decides it.
 """
 
 import os
+import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,8 +35,13 @@ import scipy.sparse as sp
 import torch
 
 import porotpu.solvers as J
+from porotpu.models import benchmarks as jbench
+from porotpu.solvers.anderson import gram_ls_alpha as j_gram_ls_alpha
 from porotpu.solvers.convergence import FieldwiseTest as JFieldwiseTest
+from porotpu.utils.parser import Parser as JParser
 from porotpu_torch import solvers as T
+from porotpu_torch.drivers import swelling
+from porotpu_torch.solvers.anderson import gram_ls_alpha
 from porotpu_torch.solvers.convergence import FieldwiseTest
 
 torch.set_num_threads(1)
@@ -82,13 +105,98 @@ def test_cg_matches_porotpu(case):
     assert r.diverged == (case == "divtol")
 
 
-@pytest.mark.parametrize("solver,accel", [("gmres", 0)])
+@pytest.mark.parametrize(
+    "solver,accel", [("gmres", 0), ("gmres", 2), ("fgmres", 1), ("fgmres", 2)]
+)
 def test_gmres_matches_porotpu(solver, accel):
+    """Restarted at 30 so that the accelerator state crosses restarts."""
     (jA, jb, jM), (tA, tb, tM) = _system()
-    kw = dict(rtol=1e-10, maxiter=200, restart=30)
-    jr = getattr(J, solver)(jA, jb, M=jM, pc_accel_order=accel, **kw)
+    kw = dict(rtol=1e-10, maxiter=200, restart=30, pc_accel_order=accel)
+    jr = getattr(J, solver)(jA, jb, M=jM, **kw)
     r = getattr(T, solver)(tA, tb, M=tM, **kw)
     _assert_result(jr, r)
+
+
+@pytest.mark.parametrize("nhist", [0, 2, 6])
+def test_gram_ls_alpha_matches_porotpu(nhist):
+    rng = np.random.default_rng(nhist)
+    F, f = rng.normal(size=(6, 50)), rng.normal(size=50)
+    want = np.asarray(j_gram_ls_alpha(jnp.asarray(F), jnp.asarray(f), nhist, 1e-3))
+    got = gram_ls_alpha(torch.as_tensor(F), torch.as_tensor(f), nhist, 1e-3).numpy()
+    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max(initial=1.0)
+    assert (got[: 6 - nhist] == 0).all()
+
+
+def test_anderson_step_matches_porotpu():
+    """x = G x + c with spectral radius 0.95 (porotpu's
+    test_anderson_accelerates_linear_fixed_point), order 4; on step 6 the
+    input repeats x + f, so ||df|| is rounding and the pair is not pushed."""
+    rng = np.random.default_rng(5)
+    n = 50
+    G = rng.normal(size=(n, n))
+    G = 0.5 * (G + G.T)
+    G = 0.95 * G / np.max(np.abs(np.linalg.eigvals(G)))
+    c = rng.normal(size=n)
+    ja, ta = J.AndersonAccelerator(4), T.AndersonAccelerator(4)
+    jstep = jax.jit(ja.step)  # one compile, not one dispatch per operation
+    js, ts = ja.init(n, dtype=jnp.float64), ta.init(n, torch.float64)
+    jx, tx = jnp.zeros(n), torch.zeros(n, dtype=torch.float64)
+    nhist = []
+    for k in range(12):
+        if k == 6:
+            jg, tg = js.xk + js.fk, ts.xk + ts.fk
+        else:
+            jg, tg = jnp.asarray(G) @ jx + jnp.asarray(c), torch.as_tensor(G) @ tx + \
+                torch.as_tensor(c)
+        js, jx = jstep(js, jg)
+        ts, tx = ta.step(ts, tg)
+        assert ts.nhist == int(js.nhist) and ts.k == int(js.k) == k + 1
+        assert np.abs(tx.numpy() - np.asarray(jx)).max() <= 1e-10 * np.abs(np.asarray(jx)).max()
+        nhist.append(ts.nhist)
+    assert nhist == [0, 1, 2, 3, 4, 4, 4, 4, 4, 4, 4, 4]
+    assert nhist[6] == nhist[5]  # the stagnating pair was not pushed ...
+    assert np.abs(ts.F.numpy()).max() > 0  # ... and the rings hold porotpu's pairs
+    for ring, jring in ((ts.X, js.X), (ts.F, js.F)):
+        np.testing.assert_allclose(ring.numpy(), np.asarray(jring), rtol=0,
+                                   atol=1e-10 * np.abs(np.asarray(jring)).max())
+
+
+AAR_CASES = {
+    # order, p, omega, pc_accel_order, maxiter
+    "order0": (0, 5, 0.5, 0, 3000),
+    "order10_p5": (10, 5, 0.5, 0, 2000),
+    "accel1_order0": (0, 5, 0.5, 1, 2000),
+    "accel1_order10_3_its": (10, 2, 0.5, 1, 3),
+}
+
+
+@pytest.mark.parametrize("case", list(AAR_CASES))
+def test_aar_matches_porotpu(case, capfd):
+    """Also the monitor's [R]/[A] line of every iteration, as porotpu
+    prints it (porotpu/solvers/aar.py:117-130)."""
+    order, p, omega, accel, maxiter = AAR_CASES[case]
+    (jA, jb, jM), (tA, tb, tM) = _system(80, seed=6, spd=True)
+    kw = dict(order=order, p=p, omega=omega, beta=1.0, rtol=1e-10, atol=1e-12,
+              maxiter=maxiter, pc_accel_order=accel, monitor=True)
+    jr = J.aar(jA, jb, M=jM, **kw)
+    jr.x.block_until_ready()
+    want = [ln for ln in capfd.readouterr().out.splitlines() if "[AAR]" in ln]
+    r = T.aar(tA, tb, M=tM, **kw)
+    got = [ln for ln in capfd.readouterr().out.splitlines() if "[AAR]" in ln]
+    _assert_result(jr, r)
+    assert r.converged == (maxiter > 3)
+    steps, jsteps = _aar_lines(got), _aar_lines(want)
+    assert len(steps) == r.iters and [s[:2] for s in steps] == [s[:2] for s in jsteps]
+    np.testing.assert_allclose([s[2] for s in steps], [s[2] for s in jsteps], rtol=1e-6)
+    assert {s[1] for s in steps} == ({"A", "R"} if order > 0 else {"R"})
+
+
+def _aar_lines(lines):
+    """(iteration, step type, residual) of each line in porotpu's format."""
+    pat = re.compile(r"---- \[AAR\] it (\d+)  \[([AR])\] res = (\d\.\d{6}e[+-]\d\d)$")
+    out = [pat.fullmatch(ln) for ln in lines]
+    assert all(out), lines
+    return [(int(m[1]), m[2], float(m[3])) for m in out]
 
 
 def test_basic_solvers_and_spectrum_match_porotpu():
@@ -103,3 +211,60 @@ def test_basic_solvers_and_spectrum_match_porotpu():
     want = J.estimate_spectrum(jA, 60, iters=30, dtype=jnp.float64)
     got = T.estimate_spectrum(tA, 60, iters=30, dtype=torch.float64)
     assert abs(got - 10.0) <= 1e-12 * 10 and abs(got - want) <= 1e-12 * 10
+
+
+# -- the model --------------------------------------------------------------
+
+MODEL_RUNS = {
+    "aar": (["--solver-type", "aar"], {}),
+    "cg_maxiter20": (["--solver-type", "cg"], {"solver maxiter": 20}),
+    "accel1_options_shadow_aar": (
+        ["--solver-type", "aar", "--petsc-options", "petsc-options-inexact",
+         "--inner-accel-order", "1"], {},
+    ),
+}
+
+
+def _argv(flags):
+    return [os.path.join(REPO, f) if f.startswith("petsc-options") else f for f in flags]
+
+
+@pytest.mark.parametrize("run", list(MODEL_RUNS))
+def test_model_solver_types_match_porotpu(run, capfd):
+    flags, overrides = MODEL_RUNS[run]
+    argv = _argv(["-N", "3", "--monitor"] + flags)
+    jp = jbench.swelling(3, parser=JParser(argv), overrides=overrides)
+    jp.solve()
+    jout = capfd.readouterr().out
+    p = swelling.setup(argv + ["--device", "cpu"])
+    p.parameters.update(overrides)
+    p.solve()
+    out = capfd.readouterr().out
+    aar_lines = [ln for ln in out.splitlines() if "[AAR]" in ln]
+    assert aar_lines == [ln for ln in jout.splitlines() if "[AAR]" in ln]
+    # the options file's -global_ksp_type gmres runs fgmres on both sides
+    assert bool(aar_lines) == (run == "aar")
+    assert p.iteration_log == jp.iteration_log
+    _assert_result(jp.last_result, p.last_result)
+    assert p.last_result.converged == (run != "cg_maxiter20")
+
+
+def test_unknown_solver_type_raises():
+    p = swelling.setup(["-N", "2", "--solver-type", "bicg", "--device", "cpu"])
+    with pytest.raises(ValueError, match="unknown solver type 'bicg'"):
+        p._finalize_solver()
+
+
+@pytest.mark.parametrize("solver_type,chunks", [("cg", 4), ("aar", 1)])
+def test_chunk_for_cg_and_aar_matches_porotpu(solver_type, chunks):
+    """porotpu chunks cg as warm restarts, with no restart-multiple rule,
+    and never chunks aar (porotpu/models/poromechanics.py:785)."""
+    over = {"solver type": solver_type, "solver chunk": 7, "solver maxiter": 25}
+    jp = jbench.swelling(2, overrides=over)
+    jp.H_dev = None
+    jp._finalize_solver()
+    p = swelling.setup(["-N", "2", "--device", "cpu"])
+    p.parameters.update(over)
+    p._finalize_solver()
+    assert p._solve_chunks == jp._solve_chunks == chunks
+    assert p._maxiter == (7 if chunks > 1 else 25)

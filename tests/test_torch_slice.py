@@ -103,6 +103,8 @@ def test_port_sources_never_import_jax():
     assert len(files) > 10
     for sub in ("utils", "drivers"):
         assert any(os.sep + sub + os.sep in f for f in files), sub
+    for mod in ("solvers/aar.py", "solvers/anderson.py", "solvers/basic.py", "solvers/cg.py"):
+        assert os.path.join(REPO, "porotpu_torch", *mod.split("/")) in files, mod
     bad = [f for f in files if pat.search(open(f).read())]
     assert bad == []
 
@@ -133,8 +135,8 @@ def test_chunk_must_be_a_multiple_of_restart():
 @pytest.mark.parametrize(
     "override,what",
     [
-        ({"solver type": "aar"}, "'aar'"),
-        ({"inner accel order": 1}, "Anderson"),
+        ({"solver cache path": "unused"}, "solver cache"),
+        ({"inner monitor": True}, "inner monitors"),
     ],
     ids=["override1", "override3"],
 )
