@@ -1,6 +1,6 @@
-"""Port parity for ROADMAP M7.3: the outer solvers porotpu's ``solvers/`` has
-beyond FGMRES, porotpu_torch against porotpu on the same numpy inputs
-made from a seed, f64 on the CPU.
+"""Port parity for ROADMAP M7.3 and M7.4: the outer solvers porotpu's
+``solvers/`` has beyond FGMRES, and the solid subsystem, porotpu_torch against porotpu on the same numpy inputs made
+from a seed, f64 on the CPU.
 
 - ``cg``: the 2-norm and the field-wise stop, ``divtol`` and a p.Ap of
   zero: the same iterations, the f32 history to 1e-6 relative, x to 1e-10.
@@ -22,6 +22,8 @@ made from a seed, f64 on the CPU.
   petsc-options-inexact --inner-accel-order 1``, where the options file's
   ``-global_ksp_type gmres`` shadows aar on both sides; ``solver chunk``
   for cg and aar as porotpu decides it.
+- ``solid_problem`` at N=2: CSR and RHS; the ``solid`` driver at N=3
+  in f64: the count and x.
 """
 
 import os
@@ -36,11 +38,13 @@ import torch
 
 import porotpu.solvers as J
 from porotpu.models import benchmarks as jbench
+from porotpu.models import subsystems as jsub
 from porotpu.solvers.anderson import gram_ls_alpha as j_gram_ls_alpha
 from porotpu.solvers.convergence import FieldwiseTest as JFieldwiseTest
 from porotpu.utils.parser import Parser as JParser
 from porotpu_torch import solvers as T
-from porotpu_torch.drivers import swelling
+from porotpu_torch.drivers import solid, swelling
+from porotpu_torch.models import subsystems
 from porotpu_torch.solvers.anderson import gram_ls_alpha
 from porotpu_torch.solvers.convergence import FieldwiseTest
 
@@ -268,3 +272,72 @@ def test_chunk_for_cg_and_aar_matches_porotpu(solver_type, chunks):
     p._finalize_solver()
     assert p._solve_chunks == jp._solve_chunks == chunks
     assert p._maxiter == (7 if chunks > 1 else 25)
+
+
+# -- the subsystems -----------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["solid"])
+def test_subsystem_problems_match_porotpu(name):
+    A, b, *_ = getattr(subsystems, f"{name}_problem")(2)
+    jA, jb, *_ = getattr(jsub, f"{name}_problem")(2)
+    if name == "fluid_pressure":
+        assert sorted(A) == sorted(jA)
+        A = sp.bmat([[A["f", "f"], A["f", "p"]], [A["p", "f"], A["p", "p"]]], format="csr")
+        jA = sp.bmat([[jA["f", "f"], jA["f", "p"]], [jA["p", "f"], jA["p", "p"]]], format="csr")
+        assert np.abs(b[A.shape[0] - 27:]).max() == 0  # the pressure RHS, r_p = 0
+    assert A.shape == jA.shape and (A != jA).nnz == 0
+    np.testing.assert_array_equal(b, jb)
+
+
+def _porotpu_subsystem(name, N):
+    """porotpu's solid.py / fluid-pressure.py main at N in f64: (iterations, x)."""
+    from porotpu.fem.dofmap import vertex_embedding
+    from porotpu.ops import FieldMatrix, device_matrix
+    from porotpu.precond.amg import rigid_body_modes
+    from porotpu.precond.inner import InnerConfig, build_inner_solver
+    from porotpu.precond.schur import build_schur_fieldsplit
+
+    if name == "solid":
+        A, b, V, _ = jsub.solid_problem(N)
+        M = build_inner_solver(A, InnerConfig(method="amg"), dofs_per_node=3,
+                               near_nullspace=rigid_body_modes(V.node_coords),
+                               coords=V.node_coords, dtype=jnp.float64)
+        E = device_matrix(A, jnp.float64)
+        res = J.cg(E.matvec, jnp.asarray(b), M=M, rtol=1e-8, atol=0.0, maxiter=500)
+        return int(res.iters), np.asarray(res.x)
+    blocks, b, W, _ = jsub.fluid_pressure_problem(N)
+    Vf, Qp = W.space("f"), W.space("p")
+    emb = vertex_embedding(Qp, Vf)
+    M = build_schur_fieldsplit(
+        blocks["f", "f"], blocks["f", "p"], blocks["p", "f"], blocks["p", "p"],
+        InnerConfig(method="cg+amg", iters=10), InnerConfig(method="lu"), dofs_per_node_f=3,
+        coords_f=Vf.node_coords, coords_p=Qp.node_coords, row_emb_pf=emb, dtype=jnp.float64,
+    )
+    embs = {("f", "p"): dict(col_emb=emb), ("p", "f"): dict(row_emb=emb)}
+    E = FieldMatrix(
+        {k: device_matrix(v.tocsr(), jnp.float64, **embs.get(k, {}))
+         for k, v in blocks.items() if v.nnz},
+        {"f": Vf.num_dofs, "p": Qp.num_dofs},
+    )
+    res = J.fgmres(E.matvec, jnp.asarray(b), M=M, rtol=1e-8, atol=0.0, maxiter=300)
+    return int(res.iters), np.asarray(res.x)
+
+
+@pytest.mark.parametrize("name", ["solid"])
+def test_subsystem_drivers_match_porotpu(name, capfd):
+    its, jx = _porotpu_subsystem(name, 3)
+    drv = {"solid": solid}[name]
+    run = drv.main(["-N", "3", "--dtype", "float64", "--device", "cpu"])
+    out = capfd.readouterr().out
+    assert run.dtype == torch.float64 and run.result.converged
+    assert run.result.iters == its
+    assert f"Solved in {its} iterations" in out and "Final residual" in out
+    assert f"Dofs = {jx.size}" in out and "Assembled in" in out
+    assert np.abs(run.result.x.numpy() - jx).max() <= 1e-10 * np.abs(jx).max()
+    assert run.residual <= 1e-8 * np.linalg.norm(run.b)
+
+
+def test_subsystem_driver_default_dtype_is_f32():
+    run = solid.setup(["-N", "2", "--device", "cpu"])
+    assert run.dtype == torch.float32 and run.E.matvec(torch.ones(run.b.size)).dtype == \
+        torch.float32
