@@ -1,5 +1,6 @@
 """Port parity for ROADMAP M7.3 and M7.4: the outer solvers porotpu's
-``solvers/`` has beyond FGMRES, and the solid subsystem, porotpu_torch against porotpu on the same numpy inputs made
+``solvers/`` has beyond FGMRES, and the solid and fluid-pressure
+subsystems, porotpu_torch against porotpu on the same numpy inputs made
 from a seed, f64 on the CPU.
 
 - ``cg``: the 2-norm and the field-wise stop, ``divtol`` and a p.Ap of
@@ -22,8 +23,9 @@ from a seed, f64 on the CPU.
   petsc-options-inexact --inner-accel-order 1``, where the options file's
   ``-global_ksp_type gmres`` shadows aar on both sides; ``solver chunk``
   for cg and aar as porotpu decides it.
-- ``solid_problem`` at N=2: CSR and RHS; the ``solid`` driver at N=3
-  in f64: the count and x.
+- ``solid_problem`` and ``fluid_pressure_problem`` at N=2: CSR and RHS;
+  the ``solid`` and ``fluid_pressure`` drivers at N=3 in f64: the count
+  and x.
 """
 
 import os
@@ -43,7 +45,7 @@ from porotpu.solvers.anderson import gram_ls_alpha as j_gram_ls_alpha
 from porotpu.solvers.convergence import FieldwiseTest as JFieldwiseTest
 from porotpu.utils.parser import Parser as JParser
 from porotpu_torch import solvers as T
-from porotpu_torch.drivers import solid, swelling
+from porotpu_torch.drivers import fluid_pressure, solid, swelling
 from porotpu_torch.models import subsystems
 from porotpu_torch.solvers.anderson import gram_ls_alpha
 from porotpu_torch.solvers.convergence import FieldwiseTest
@@ -276,7 +278,7 @@ def test_chunk_for_cg_and_aar_matches_porotpu(solver_type, chunks):
 
 # -- the subsystems -----------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["solid"])
+@pytest.mark.parametrize("name", ["solid", "fluid_pressure"])
 def test_subsystem_problems_match_porotpu(name):
     A, b, *_ = getattr(subsystems, f"{name}_problem")(2)
     jA, jb, *_ = getattr(jsub, f"{name}_problem")(2)
@@ -323,10 +325,10 @@ def _porotpu_subsystem(name, N):
     return int(res.iters), np.asarray(res.x)
 
 
-@pytest.mark.parametrize("name", ["solid"])
+@pytest.mark.parametrize("name", ["solid", "fluid_pressure"])
 def test_subsystem_drivers_match_porotpu(name, capfd):
     its, jx = _porotpu_subsystem(name, 3)
-    drv = {"solid": solid}[name]
+    drv = {"solid": solid, "fluid_pressure": fluid_pressure}[name]
     run = drv.main(["-N", "3", "--dtype", "float64", "--device", "cpu"])
     out = capfd.readouterr().out
     assert run.dtype == torch.float64 and run.result.converged
