@@ -106,12 +106,28 @@
    ``amg_setup(coords=None)`` on swelling N=80's solid block as assembled
    (f64, symmetric positive definite; rigid-body near-nullspace, the
    drivers' AMG settings), its host
-   setup time, levels and each prolongator's storage format; then a
-   plain preconditioned CG loop (this script's ``pcg``: the port's
-   tolerance-based cg is ROADMAP M7.3) at rtol 1e-8 from one seeded
-   right-hand side with that AMG, on the card (counts reset around it: K1
-   launched, no plain product) and on the CPU: the same iteration count
-   and solutions within 1e-10 relative.
+   setup time, levels and each prolongator's storage format; then the
+   port's outer ``cg`` at rtol 1e-8 from one seeded right-hand side with
+   that AMG, on the card (counts reset around it: K1 launched, no plain
+   product) and on the CPU: the same iteration count and solutions within
+   1e-10 relative.
+11. The outer solvers beyond FGMRES and the subsystem drivers, f64, each
+   through its driver's ``setup`` and ``solve()`` with the counts reset
+   just before the solve and read just after (OUTER_RUNS, porotpu's
+   counts): swelling N=80 ``--solver-type aar`` at the drivers' defaults
+   (32; the [R]/[A] step mix from its monitor; the field-wise guard is
+   printed and not required, since AAR stops on its preconditioned
+   residual), swelling N=80 petsc-options-inexact with
+   ``--inner-accel-order 1`` (16, the guard required), solid N=16 (cg +
+   AMG, 14; ||b - A x|| at most 10 times porotpu's; its prolongators
+   store ELL and Dense, as porotpu's, so no K2) and fluid-pressure N=16
+   (fgmres + selfp Schur fieldsplit, 14; ||b - A x|| likewise; K2 on the
+   Transposed pressure rows).  Each run: K1 launched, no plain
+   product, K2 as its operator walk finds banded transposes, its host
+   syncs, launches an iteration, setup and solve s, peak memory, and its
+   heaviest K1/K2 sets held against the plain version at 1e-12.  Then
+   swelling N=6 aar and solid N=4 on the card and with ``--device cpu``:
+   the same counts, solutions within 1e-10 relative.
 
 Any failed check raises and the script exits non-zero.  It also exits
 non-zero without a CUDA device, and fails if jax or any module of porotpu
@@ -168,6 +184,26 @@ DRIVER_RUNS = (
     ("swelling_3way_qexact", "swelling",
      ["-N", "80", "--petsc-options", "petsc-options-exact-iterative",
       "--pc-type", "diagonal 3-way"], 110245, [6], True),
+)
+# phase 11: label, driver, command line, dofs, porotpu's iterations
+# (porotpu, CPU run, f64, first step t=0.1), porotpu's final ||b - A x||
+# for the subsystems (None: the 3-field problem's guard), K2 expected (None:
+# as the operator walk finds banded transposes)
+OUTER_RUNS = (
+    ("swelling_aar", "swelling", ["-N", "80", "--solver-type", "aar", "--monitor"],
+     110245, [32], None, None),
+    ("swelling_inexact_accel1", "swelling",
+     ["-N", "80", "--petsc-options", "petsc-options-inexact", "--inner-accel-order", "1"],
+     110245, [16], None, None),
+    # solid's prolongators store ELL and Dense, as porotpu's: no K2
+    ("solid", "solid", ["-N", "16", "--dtype", "float64"], 107811, [14], 6.755e-13, None),
+    ("fluid_pressure", "fluid_pressure", ["-N", "16", "--dtype", "float64"], 112724, [14],
+     1.265e-13, None),
+)
+# phase 11: card against CPU
+OUTER_CPU_RUNS = (
+    ("swelling", ["-N", "6", "--solver-type", "aar"]),
+    ("solid", ["-N", "4", "--dtype", "float64"]),
 )
 # phase 10: swelling N=80's solid block, AMG without coordinates
 GREEDY_RUN = ["-N", "80"]
@@ -286,11 +322,12 @@ def _argv(argv):
     return [os.path.join(ROOT, a) if a.startswith("petsc-options") else a for a in argv]
 
 
-def operators(problem):
-    """One walk over a problem's device operators (A_dev, the PC, H_dev):
-    type name -> modules, for DIA, ELL, Transposed and AMGLevel."""
+def operators(roots):
+    """One walk over device operators (a problem's A_dev, PC and H_dev; a
+    subsystem's E and M): type name -> modules, for DIA, ELL, Transposed
+    and AMGLevel."""
     ops = {"DIA": [], "ELL": [], "Transposed": [], "AMGLevel": []}
-    for root in (problem.A_dev, problem.pc, problem.H_dev):
+    for root in roots:
         for m in root.modules() if root is not None else ():
             ops.get(type(m).__name__, []).append(m)
     return ops
@@ -346,7 +383,7 @@ def count_syncs(torch):
 
 
 def driver_run(label, drv, argv, dofs, oracle, k2, dev, torch, dia_kernel, ell_products,
-               inner_iters, FieldwiseTest, mb, peaks):
+               inner_iters, FieldwiseTest, mb, peaks, guard=True):
     """One driver run on the card: ``setup(argv)``, then ``solve()`` with the
     counts reset just before and read just after, then ``print_timings()``.
     Checks the dofs, the true-residual guard at the problem's own
@@ -358,7 +395,10 @@ def driver_run(label, drv, argv, dofs, oracle, k2, dev, torch, dia_kernel, ell_p
     run's numbers and the sets to hold against the plain version: a list
     of ((kernel, dtype, nd, nrows), offsets, ne, vector path, launches).
     The iteration count is returned, not checked, so that every run
-    reports before a count against porotpu's fails the script."""
+    reports before a count against porotpu's fails the script.  ``k2``
+    None: K2 as the operator walk finds banded transposes.  ``guard``
+    False: the field-wise guard is printed and not required (AAR stops on
+    its preconditioned residual)."""
     import numpy as np
 
     print(f"-- {label}: python -m {drv.__name__} {' '.join(argv)}", flush=True)
@@ -408,12 +448,7 @@ def driver_run(label, drv, argv, dofs, oracle, k2, dev, torch, dia_kernel, ell_p
               f"min {min(fp_iters)} max {max(fp_iters)}, total {sum(fp_iters)}")
     print(f"scalar-path launches: {n_scalar} of {k12} ({100 * n_scalar / max(k12, 1):.1f}%); "
           f"ELL products: {sum(ell.values())}")
-    print("launches by operator (kernel dtype nd nrows: launches, of them scalar path):")
-    for key, k in sorted(launches.items(), key=lambda kv: -kv[1] * kv[0][2] * kv[0][3]):
-        print(f"  {' '.join(map(str, key))}: {k}, {scalar.get(key, 0)}")
-    for key, k in sorted(ell.items()):
-        print(f"  ELL {' '.join(map(str, key))}: {k}")
-    sys.stdout.flush()
+    print_launches(launches, scalar, ell)
     problem.print_timings()
     sys.stdout.flush()
 
@@ -422,27 +457,59 @@ def driver_run(label, drv, argv, dofs, oracle, k2, dev, torch, dia_kernel, ell_p
     rtol = float(problem.parameters["solver rtol"])
     with torch.inference_mode():
         fw = FieldwiseTest.from_sizes(problem.padded_sizes, b)
-        ea, er = (float(v) for v in fw.errors(b - problem.A_dev.matvec(problem.sol)))
-    print(f"true residual fieldwise: abs={ea:.3e} rel={er:.3e} (atol {atol:g}, rtol {rtol:g})",
+        r = b - problem.A_dev.matvec(problem.sol)
+        ea, er = (float(v) for v in fw.errors(r))
+        rn, bn = torch.linalg.norm(r).item(), torch.linalg.norm(b).item()
+    met = ea < atol or er < rtol
+    print(f"true residual fieldwise: abs={ea:.3e} rel={er:.3e} (atol {atol:g}, rtol {rtol:g}"
+          + ("" if guard else f"; printed, not required: {'met' if met else 'NOT met'}")
+          + f"); ||b - A x|| {rn:.4e}, ||b|| {bn:.4e}, relative {rn / bn:.3e}; the solver's "
+          f"own residual {res.res:.4e}, relative to its first {res.res / res.history[0]:.3e}",
           flush=True)
     check(res.converged, f"{label}: the solve did not converge")
-    check(ea < atol or er < rtol, f"{label}: true-residual guard failed")
+    check(met or not guard, f"{label}: true-residual guard failed")
     check(np.isfinite(problem.sol.cpu().numpy()).all(), f"{label}: non-finite solution")
     check(any(k[:2] == ("dia_mv", "float64") for k in launches), f"{label}: K1 never ran in f64")
     check(counts["plain"] == 0, f"{label}: {counts['plain']} banded products took a plain version")
-    ops = operators(problem)
+    ops = operators((problem.A_dev, problem.pc, problem.H_dev))
     transposes = banded_transposes(ops)
     print(f"banded operators applied transposed (K2's): {len(transposes)}; "
           f"DIA {len(ops['DIA'])}, ELL {len(ops['ELL'])}, Transposed {len(ops['Transposed'])}")
+    check_k2(label, bool(transposes) if k2 is None else k2, transposes, counts)
+    time_heaviest_ell(ops, ell, dev, torch, mb, peaks)
+
+    held = held_sets(launches, scalar, ops, k12)
+    out = dict(iterations=iterations, launches=launches, scalar=scalar, counts=counts, held=held,
+               solve_s=problem.t_solve_total, setup_s=problem.t_setup,
+               peak_mib=(peak - before) / 2**20, fp_iters=fp_iters)
+    out["problem"] = problem
+    return out
+
+
+def check_k2(label, k2, transposes, counts):
+    """K2 launched where a run expects it; else no banded transpose and no K2."""
     if k2:
         check(counts["dia_rmv"] > 0, f"{label}: K2 was never launched")
     else:
         check(not transposes, f"{label}: {len(transposes)} banded transposes, none expected")
         check(counts["dia_rmv"] == 0, f"{label}: K2 launched with no banded transpose")
-    time_heaviest_ell(ops, ell, dev, torch, mb, peaks)
 
-    # the sets to hold: the heaviest of each kernel over all launches, and
-    # the heaviest scalar-path sets, each on the path the run took it
+
+def print_launches(launches, scalar, ell):
+    """A run's launches by operator, heaviest first, and its ELL products."""
+    print("launches by operator (kernel dtype nd nrows: launches, of them scalar path):")
+    for key, k in sorted(launches.items(), key=lambda kv: -kv[1] * kv[0][2] * kv[0][3]):
+        print(f"  {' '.join(map(str, key))}: {k}, {scalar.get(key, 0)}")
+    for key, k in sorted(ell.items()):
+        print(f"  ELL {' '.join(map(str, key))}: {k}")
+    sys.stdout.flush()
+
+
+def held_sets(launches, scalar, ops, k12):
+    """The sets of a run to hold against the plain version: the heaviest
+    of each kernel over all launches (launches x diagonals x rows), and the
+    heaviest scalar-path sets, each on the path the run took it.  A list of
+    ((kernel, dtype, nd, nrows), offsets, ne, vector path, launches)."""
     dias = {tuple(m.data.shape): (m.offsets, m.ne) for m in ops["DIA"]}
     missing = sorted(k for k in launches if k[2:] not in dias)
     if missing:
@@ -462,11 +529,7 @@ def driver_run(label, drv, argv, dofs, oracle, k2, dev, torch, dia_kernel, ell_p
     share = sum(launches[k] for k in dict.fromkeys(chosen)) / max(k12, 1)
     print(f"sets held against the plain version: {len(held)}, "
           f"{100 * share:.1f}% of the run's K1+K2 launches", flush=True)
-    out = dict(iterations=iterations, launches=launches, scalar=scalar, counts=counts, held=held,
-               solve_s=problem.t_solve_total, setup_s=problem.t_setup,
-               peak_mib=(peak - before) / 2**20, fp_iters=fp_iters)
-    out["problem"] = problem
-    return out
+    return held
 
 
 def hold_set(key, offs, ne, vec, dev, torch, dia_kernel, mb, rng, peaks):
@@ -514,35 +577,17 @@ def hold_set(key, offs, ne, vec, dev, torch, dia_kernel, mb, rng, peaks):
     return ms
 
 
-def pcg(A, M, b, rtol, maxiter=500):
-    """Preconditioned CG from x = 0 until ||r|| <= rtol ||b||: (x, iterations)."""
-    import torch
-
-    x, r = torch.zeros_like(b), b.clone()
-    z = M(r)
-    p, rz = z, torch.dot(r, z)
-    bnorm = torch.linalg.norm(b).item()
-    for k in range(1, maxiter + 1):
-        Ap = A(p)
-        alpha = rz / torch.dot(p, Ap)
-        x, r = x + alpha * p, r - alpha * Ap
-        if torch.linalg.norm(r).item() <= rtol * bnorm:
-            return x, k
-        z = M(r)
-        rz_new = torch.dot(r, z)
-        p, rz = z + (rz_new / rz) * p, rz_new
-    return x, maxiter
-
-
 def greedy_phase(swelling, dev, torch, dia_kernel, ell_products):
     """Phase 10: ``amg_setup(coords=None)`` on swelling N=80's solid block,
-    then ``pcg`` with it on the card and on the CPU from one right-hand side."""
+    then the port's ``cg`` with it on the card and on the CPU from one
+    right-hand side."""
     import copy
 
     import numpy as np
 
     from porotpu_torch.precond.amg import amg_setup, rigid_body_modes
     from porotpu_torch.precond.inner import InnerConfig
+    from porotpu_torch.solvers.cg import cg
 
     print(f"-- greedy AMG: the solid block of swelling {' '.join(GREEDY_RUN)}", flush=True)
     # the block as assembled: symmetric positive definite (its BC-applied
@@ -579,21 +624,158 @@ def greedy_phase(swelling, dev, torch, dia_kernel, ell_products):
             dia_kernel.reset_counts()
             ell_products.clear()
             t0 = time.perf_counter()
-            x, its = pcg(m.levels[0].A.matvec, m, bt, GREEDY_RTOL)
+            res = cg(m.levels[0].A.matvec, bt, M=m, rtol=GREEDY_RTOL, atol=0.0, maxiter=500)
+            x, its = res.x, res.iters
             if where == "cuda":
                 torch.cuda.synchronize()
             out[where] = (x.cpu().numpy(), its, time.perf_counter() - t0,
                           dict(dia_kernel.COUNTS), sum(ell_products.values()))
     (xg, itg, tg, cg_counts, ellg), (xc, itc, tc, _, _) = out["cuda"], out["cpu"]
     err = np.abs(xg - xc).max() / np.abs(xc).max()
-    print(f"pcg rtol {GREEDY_RTOL:g}: card {itg} iterations in {tg:.3f} s, CPU {itc} in "
+    print(f"cg rtol {GREEDY_RTOL:g}: card {itg} iterations in {tg:.3f} s, CPU {itc} in "
           f"{tc:.3f} s; max rel diff of x {err:.2e}; card counts {cg_counts}, ELL products "
           f"{ellg}", flush=True)
-    check(itg == itc, f"greedy AMG pcg: {itg} iterations on the card, {itc} on the CPU")
-    check(err <= 1e-10, f"greedy AMG pcg: card and CPU solutions differ ({err:.2e})")
-    check(np.isfinite(xg).all(), "greedy AMG pcg: non-finite solution")
+    check(itg == itc, f"greedy AMG cg: {itg} iterations on the card, {itc} on the CPU")
+    check(err <= 1e-10, f"greedy AMG cg: card and CPU solutions differ ({err:.2e})")
+    check(np.isfinite(xg).all(), "greedy AMG cg: non-finite solution")
     check(cg_counts["dia_mv"] > 0 and cg_counts["plain"] == 0,
-          f"greedy AMG pcg: K1 {cg_counts['dia_mv']} launches, {cg_counts['plain']} plain")
+          f"greedy AMG cg: K1 {cg_counts['dia_mv']} launches, {cg_counts['plain']} plain")
+
+
+def subsystem_run(label, drv, argv, dofs, oracle, resid, k2, dev, torch, dia_kernel,
+                  ell_products, mb, peaks):
+    """One subsystem driver run on the card: ``setup(argv)`` (assembly,
+    host setup, the operators moved to the card), then ``solve()`` with the
+    counts reset just before and read just after.  Checks the dofs, f64,
+    ||b - A x|| at most 10 times porotpu's ``resid``, K1 > 0, no plain
+    product and K2 as ``check_k2``; returns the run's numbers and its sets
+    to hold, as ``driver_run``."""
+    import numpy as np
+
+    print(f"-- {label}: python -m {drv.__name__} {' '.join(argv)}", flush=True)
+    before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    run = drv.setup(argv)
+    t_build = time.perf_counter() - t0
+    check(run.device.type == "cuda" and run.dtype == torch.float64,
+          f"{label}: runs on {run.device} in {run.dtype}, not on the card in f64")
+    check(run.b.size == dofs, f"{label}: {run.b.size} dofs, porotpu's run had {dofs}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    dia_kernel.reset_counts()
+    ell_products.clear()
+    with count_syncs(torch) as syncs:
+        its = run.solve()
+    counts = dict(dia_kernel.COUNTS)
+    launches = dict(dia_kernel.LAUNCHES)
+    scalar = dict(dia_kernel.SCALAR_LAUNCHES)
+    ell = dict(ell_products)
+    peak = torch.cuda.max_memory_allocated(dev)
+    res = run.result
+    k12 = counts["dia_mv"] + counts["dia_rmv"]
+    print(f"dofs={run.b.size}; built in {t_build:.2f} s (host setup after assembly "
+          f"{run.t_setup:.2f} s), solve {run.t_solve:.4f} s; peak device memory "
+          f"{peak / 2**20:.1f} MiB, net of the {before / 2**20:.1f} MiB held before the run "
+          f"{(peak - before) / 2**20:.1f} MiB")
+    print(f"iterations={its} (porotpu {oracle[0]}) converged={res.converged} "
+          f"residual={res.res:.4e}; ||b - A x|| {run.residual:.4e} (porotpu {resid:.4e}, "
+          f"at most {10 * resid:.4e})")
+    print("residual history:", " ".join(f"{h:.4e}" for h in res.history[: res.iters + 1]))
+    print("dispatch counts in the solve: " + ", ".join(f"{k}={v}" for k, v in counts.items())
+          + f"; K1+K2 launches an iteration {k12 / max(its, 1):.1f} (K1 "
+          f"{counts['dia_mv'] / max(its, 1):.1f}, K2 {counts['dia_rmv'] / max(its, 1):.1f})")
+    print(f"host syncs in the solve: {syncs['n']} ({syncs['n'] / max(its, 1):.1f} an iteration); "
+          f"ELL products: {sum(ell.values())}")
+    print_launches(launches, scalar, ell)
+    check(res.converged, f"{label}: the solve did not converge")
+    check(run.residual <= 10 * resid, f"{label}: ||b - A x|| {run.residual:.3e} is above "
+          f"10 x porotpu's {resid:.3e}")
+    check(np.isfinite(res.x.cpu().numpy()).all(), f"{label}: non-finite solution")
+    check(any(k[:2] == ("dia_mv", "float64") for k in launches), f"{label}: K1 never ran in f64")
+    check(counts["plain"] == 0, f"{label}: {counts['plain']} banded products took a plain version")
+    ops = operators((run.E, run.M))
+    transposes = banded_transposes(ops)
+    print(f"banded operators applied transposed (K2's): {len(transposes)}; "
+          f"DIA {len(ops['DIA'])}, ELL {len(ops['ELL'])}, Transposed {len(ops['Transposed'])}")
+    check_k2(label, bool(transposes) if k2 is None else k2, transposes, counts)
+    held = held_sets(launches, scalar, ops, k12)
+    return dict(iterations=[its], launches=launches, counts=counts, held=held,
+                solve_s=run.t_solve, setup_s=run.t_setup, peak_mib=(peak - before) / 2**20,
+                syncs=syncs["n"])
+
+
+class Tee:
+    """stdout that also keeps what was written (the AAR monitor's lines)."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def outer_phase(dev, torch, dia_kernel, ell_products, inner_iters, FieldwiseTest, mb, peaks,
+                rng, mismatches):
+    """Phase 11: OUTER_RUNS, their held sets, then OUTER_CPU_RUNS."""
+    import numpy as np
+
+    from porotpu_torch.drivers import fluid_pressure, solid, swelling
+
+    drivers = {"swelling": swelling, "solid": solid, "fluid_pressure": fluid_pressure}
+    held = []
+    for label, drv, argv, dofs, oracle, resid, k2 in OUTER_RUNS:
+        if resid is None:
+            tee = Tee(sys.stdout)
+            with contextlib.redirect_stdout(tee):
+                out = driver_run(label, drivers[drv], argv, dofs, oracle, k2, dev, torch,
+                                 dia_kernel, ell_products, inner_iters, FieldwiseTest, mb, peaks,
+                                 guard="aar" not in argv)
+            steps = [ln for ln in "".join(tee.text).splitlines() if ln.startswith("---- [AAR]")]
+            if "aar" in argv:
+                n_a = sum("[A]" in ln for ln in steps)
+                print(f"AAR step mix: {len(steps) - n_a} [R], {n_a} [A] (p "
+                      f"{out['problem'].parameters['AAR p']}, order "
+                      f"{out['problem'].parameters['AAR order']})")
+                check(len(steps) == sum(out["iterations"]),
+                      f"{label}: {len(steps)} monitor lines for {out['iterations']} iterations")
+            else:
+                check(not steps, f"{label}: AAR ran; the options file's gmres shadows it")
+        else:
+            out = subsystem_run(label, drivers[drv], _argv(argv), dofs, oracle, resid, k2, dev,
+                                torch, dia_kernel, ell_products, mb, peaks)
+        held += [(label, *h) for h in out["held"]]
+        if out["iterations"] != oracle:
+            mismatches.append(f"{label}: {out['iterations']} iterations, porotpu took {oracle}")
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("-- phase 11's heaviest sets against their plain versions "
+          "(random data at their shapes and offsets)")
+    for label, key, offs, ne, vec, n_path in held:
+        print(f" {label}, {n_path} launches of this set on this path in the solve:")
+        hold_set(key, offs, ne, vec, dev, torch, dia_kernel, mb, rng, peaks)
+
+    for drv, argv in OUTER_CPU_RUNS:
+        got = {}
+        for where in ("cuda", "cpu"):
+            run = drivers[drv].setup(argv + ["--device", where])
+            dia_kernel.reset_counts()
+            its = run.solve()
+            x = (run.sol if drv == "swelling" else run.result.x).cpu().numpy()
+            got[where] = (its, x, dict(dia_kernel.COUNTS))
+            del run
+        err = np.abs(got["cuda"][1] - got["cpu"][1]).max() / np.abs(got["cpu"][1]).max()
+        print(f"{drv} {' '.join(argv)} card vs CPU: iterations {got['cuda'][0]} vs "
+              f"{got['cpu'][0]}, max rel diff of x {err:.2e}; card counts {got['cuda'][2]}",
+              flush=True)
+        check(got["cuda"][2]["dia_mv"] > 0 and got["cuda"][2]["plain"] == 0,
+              f"{drv} {argv}: K1 {got['cuda'][2]['dia_mv']}, plain {got['cuda'][2]['plain']}")
+        check(got["cuda"][0] == got["cpu"][0], f"{drv} {argv}: counts differ, card and CPU")
+        check(err <= 1e-10, f"{drv} {argv}: card and CPU solutions differ ({err:.2e})")
 
 
 def main():
@@ -922,6 +1104,10 @@ def main():
 
     # -- 10. AMG without coordinates: greedy aggregation ----------------------
     greedy_phase(swelling, dev, torch, dia_kernel, ELL_PRODUCTS)
+
+    # -- 11. outer cg, AAR, Anderson acceleration, the subsystem drivers -------
+    outer_phase(dev, torch, dia_kernel, ELL_PRODUCTS, inner_iters, FieldwiseTest, mb, peaks, rng,
+                mismatches)
     check(not mismatches, "; ".join(mismatches))
     check_imports()
 

@@ -2,10 +2,13 @@
 
 Same layout and names as ``porotpu``: ``fem`` (meshes, Lagrange spaces,
 assembly, Dirichlet BCs), ``ops`` (banded storage and the hand-written
-CUDA kernels), ``solvers`` (FGMRES and the field-wise convergence test),
-``precond`` (AMG, inner solvers, Schur fieldsplit, 2-way block
-preconditioner), ``models`` (forms, loads, the poromechanics problem and
-swelling-3d) and ``tools`` (the banded-matvec microbench).  ``convert``
+CUDA kernels), ``solvers`` (GMRES and FGMRES, CG, AAR, Anderson
+acceleration, Chebyshev, the field-wise convergence test), ``precond``
+(AMG, inner solvers, Schur fieldsplit, 2-way and 3-way block
+preconditioners), ``models`` (forms, loads, the poromechanics problem,
+its benchmarks and the solid and fluid-pressure subsystems), ``drivers``
+(the five reference drivers) and ``tools`` (bench.py's datapoints, the
+banded-matvec microbench).  ``convert``
 carries porotpu's device objects across for the parity tests.
 
 The port imports torch, numpy and scipy, and nothing named ``porotpu``:

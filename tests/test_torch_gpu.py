@@ -2,7 +2,8 @@
 PyTorch version, f32 to 1e-5 and f64 to 1e-12 of max|y| (summation order
 only), on the N=3 and test_dia offset sets and on the launch plan's edge
 shapes; K1 and K2 also launch twice bitwise equal, take an unaligned
-input and refuse unaligned data.
+input and refuse unaligned data.  The solid and fluid-pressure drivers at
+N=3 in f64 launch K1, take no plain version and match their CPU runs.
 
 Every test here needs a CUDA card and skips without one.  This file
 imports no jax, so it runs where jax is absent:
@@ -184,3 +185,24 @@ def test_k1_rejects_bad_input(cuda_device):
                                                                           device=cuda_device))
     with pytest.raises(ValueError, match="xpad has"):
         dia_kernel.dia_mv_padded(data, (0, 1), offs, torch.ones(8, device=cuda_device))
+
+
+@pytest.mark.parametrize("name", ["solid", "fluid_pressure"])
+def test_subsystem_drivers_on_the_card(name, cuda_device):
+    """The solid (outer cg + AMG) and fluid-pressure (fgmres + Schur
+    fieldsplit) drivers at N=3 in f64: K1 launched and no plain product on
+    the card, the count and x of the CPU run (plain versions) to 1e-10."""
+    from porotpu_torch.drivers import fluid_pressure, solid
+
+    drv = {"solid": solid, "fluid_pressure": fluid_pressure}[name]
+    argv = ["-N", "3", "--dtype", "float64"]
+    card = drv.setup(argv)
+    assert card.device.type == "cuda"
+    dia_kernel.reset_counts()
+    its = card.solve()
+    counts = dict(dia_kernel.COUNTS)
+    cpu = drv.setup(argv + ["--device", "cpu"])
+    assert cpu.solve() == its and card.result.converged
+    assert counts["dia_mv"] > 0 and counts["plain"] == 0
+    x, want = card.result.x.cpu().numpy(), cpu.result.x.numpy()
+    assert np.abs(x - want).max() <= 1e-10 * np.abs(want).max()

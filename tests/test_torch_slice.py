@@ -103,7 +103,8 @@ def test_port_sources_never_import_jax():
     assert len(files) > 10
     for sub in ("utils", "drivers"):
         assert any(os.sep + sub + os.sep in f for f in files), sub
-    for mod in ("solvers/aar.py", "solvers/anderson.py", "solvers/basic.py", "solvers/cg.py", "models/subsystems.py", "drivers/solid.py", "drivers/fluid_pressure.py"):
+    for mod in ("solvers/aar.py", "solvers/anderson.py", "solvers/basic.py", "solvers/cg.py",
+                "models/subsystems.py", "drivers/solid.py", "drivers/fluid_pressure.py"):
         assert os.path.join(REPO, "porotpu_torch", *mod.split("/")) in files, mod
     bad = [f for f in files if pat.search(open(f).read())]
     assert bad == []
