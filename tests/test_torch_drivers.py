@@ -16,6 +16,10 @@ relative (both record it in f32), the final solution to 1e-10 relative
   full-residual RHS, whose history terms couple the steps, and cg+amg
   inner solves.
 
+The options file's ``-global_ksp_type gmres`` shadows ``--solver-type
+aar`` on both sides (swelling N=4 inexact), also under
+``--inner-accel-order 1``.
+
 Also: the storage format device_matrix chose for each operator of
 footing (N=4 with banded transposes, N=12 with ELL coupling blocks)
 against porotpu's, the options files and the CLI parser against
@@ -128,6 +132,37 @@ def test_full_residual_history_reaches_the_rhs(run):
     assert np.abs(b - b_loads)[free].max() > 0
     jb = np.asarray(jp.get_rhs(jp.t))
     assert np.abs(b - jb).max() <= 1e-12 * np.abs(jb).max()
+
+
+@pytest.mark.parametrize(
+    "flags", [["--solver-type", "aar"], ["--solver-type", "aar", "--inner-accel-order", "1"]],
+    ids=["aar", "aar_accel1"],
+)
+def test_options_file_shadows_solver_type(flags, capfd):
+    """petsc-options-inexact sets -global_ksp_type gmres, which overrides
+    ``solver type`` (porotpu/models/poromechanics.py:790-795): with
+    ``--solver-type aar`` porotpu and the port both run FGMRES, the
+    swelling_inexact run exactly.  With ``--inner-accel-order 1`` too the
+    port's Anderson-mixed PC output only adds stored directions, so the
+    FGMRES trace and solution are porotpu's without it (:845-856)."""
+    jp0, p0 = _solved("swelling_inexact")
+    argv = _argv(["-N", "4", "--petsc-options", "petsc-options-inexact", "--monitor"] + flags)
+    capfd.readouterr()
+    p = swelling.setup(argv + ["--device", "cpu"])
+    p.solve()
+    if "--inner-accel-order" not in flags:
+        jp = jbench.swelling(4, parser=JParser(argv))
+        jp.solve()
+        assert jp.iteration_log == jp0.iteration_log
+        np.testing.assert_array_equal(np.asarray(jp.sol), np.asarray(jp0.sol))
+        np.testing.assert_array_equal(p.sol.numpy(), p0.sol.numpy())
+    assert "[AAR]" not in capfd.readouterr().out
+    assert p.iteration_log == jp0.iteration_log
+    jh = np.asarray(jp0.last_result.history)
+    live = ~np.isnan(jh)
+    np.testing.assert_allclose(p.last_result.history[live], jh[live], rtol=1e-6, atol=0)
+    jx = np.asarray(jp0.sol)
+    assert np.abs(p.sol.numpy() - jx).max() <= 1e-10 * np.abs(jx).max()
 
 
 OPERATORS = ("DIA", "ELL", "Dense", "Transposed")
