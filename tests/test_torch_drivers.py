@@ -289,7 +289,7 @@ def _swelling_2d(**overrides):
     "what,attempt",
     [
         # outer cg is ported (ROADMAP M7.3): this case now drives the
-        # --inner-monitor flag through the driver's parser
+        # --inner-monitor flag through the swelling driver's parser
         ("monitors.*M7\\.6",
          lambda: swelling.setup(["-N", "2", "--inner-monitor", "--device", "cpu"])
          .create_solver()),
