@@ -290,7 +290,8 @@ def test_subsystem_problems_match_porotpu(name):
 
 
 def _porotpu_subsystem(name, N):
-    """porotpu's solid.py / fluid-pressure.py main at N in f64: (iterations, x)."""
+    """porotpu's solid.py / fluid-pressure.py main at N in f64, the solve
+    jitted with the operators as arguments as there: (iterations, x)."""
     from porotpu.fem.dofmap import vertex_embedding
     from porotpu.ops import FieldMatrix, device_matrix
     from porotpu.precond.amg import rigid_body_modes
@@ -302,8 +303,10 @@ def _porotpu_subsystem(name, N):
         M = build_inner_solver(A, InnerConfig(method="amg"), dofs_per_node=3,
                                near_nullspace=rigid_body_modes(V.node_coords),
                                coords=V.node_coords, dtype=jnp.float64)
-        E = device_matrix(A, jnp.float64)
-        res = J.cg(E.matvec, jnp.asarray(b), M=M, rtol=1e-8, atol=0.0, maxiter=500)
+        solve = jax.jit(
+            lambda Eop, Mop, bb: J.cg(Eop.matvec, bb, M=Mop, rtol=1e-8, atol=0.0, maxiter=500)
+        )
+        res = solve(device_matrix(A, jnp.float64), M, jnp.asarray(b))
         return int(res.iters), np.asarray(res.x)
     blocks, b, W, _ = jsub.fluid_pressure_problem(N)
     Vf, Qp = W.space("f"), W.space("p")
@@ -319,7 +322,10 @@ def _porotpu_subsystem(name, N):
          for k, v in blocks.items() if v.nnz},
         {"f": Vf.num_dofs, "p": Qp.num_dofs},
     )
-    res = J.fgmres(E.matvec, jnp.asarray(b), M=M, rtol=1e-8, atol=0.0, maxiter=300)
+    solve = jax.jit(
+        lambda Eop, Mop, bb: J.fgmres(Eop.matvec, bb, M=Mop, rtol=1e-8, atol=0.0, maxiter=300)
+    )
+    res = solve(E, M, jnp.asarray(b))
     return int(res.iters), np.asarray(res.x)
 
 
