@@ -53,11 +53,15 @@ def _fieldwise_check(fw: FieldwiseTest, r, atol, rtol):
     return bool(done_h), ea_h
 
 
-def _gmres_impl(A, b, x0, M, restart, rtol, atol, maxiter, flexible, fieldwise, divtol,
-                pc_accel_order):
+def _gmres(A, b, x0, M, restart, rtol, atol, maxiter, flexible, fieldwise, divtol,
+           pc_accel_order):
+    if x0 is None:
+        x0 = torch.zeros_like(b)
+    if M is None:
+        M = lambda r: r  # noqa: E731
+    m = min(maxiter if restart is None else restart, maxiter)
     n = b.shape[0]
     dt = _np_dtype(b.dtype)
-    m = restart
     bnorm = dt.type(torch.linalg.norm(b).item())
     tol = np.maximum(dt.type(atol), dt.type(rtol) * bnorm)
     history = np.full((maxiter + 1,), np.nan, dtype=np.float32)
@@ -175,19 +179,6 @@ def _gmres_impl(A, b, x0, M, restart, rtol, atol, maxiter, flexible, fieldwise, 
     return SolveResult(x, it, res, done, history, div)
 
 
-def _run(A, b, x0, M, restart, rtol, atol, maxiter, flexible, fieldwise, divtol,
-         pc_accel_order):
-    if x0 is None:
-        x0 = torch.zeros_like(b)
-    if M is None:
-        M = lambda r: r  # noqa: E731
-    if restart is None:
-        restart = maxiter
-    restart = min(restart, maxiter)
-    return _gmres_impl(A, b, x0, M, restart, rtol, atol, maxiter, flexible, fieldwise,
-                       divtol, pc_accel_order)
-
-
 def fgmres(
     A,
     b,
@@ -209,8 +200,8 @@ def fgmres(
     The mixed direction lies in the span of the stored ones plus the new
     one, so the residual trace is the same as without it.
     """
-    return _run(A, b, x0, M, restart, rtol, atol, maxiter, True, fieldwise, divtol,
-                pc_accel_order)
+    return _gmres(A, b, x0, M, restart, rtol, atol, maxiter, True, fieldwise, divtol,
+                  pc_accel_order)
 
 
 def gmres(
@@ -234,5 +225,5 @@ def gmres(
     (swelling.py:75 warns of it; porotpu pins it in
     tests/test_ops_solvers.py::test_gmres_pc_accel_order).
     """
-    return _run(A, b, x0, M, restart, rtol, atol, maxiter, False, fieldwise, divtol,
-                pc_accel_order)
+    return _gmres(A, b, x0, M, restart, rtol, atol, maxiter, False, fieldwise, divtol,
+                  pc_accel_order)
