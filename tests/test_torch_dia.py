@@ -12,6 +12,7 @@ two differ only in summation order).  The CUDA kernels themselves are
 tested on the card by tests/test_torch_gpu.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,9 +28,9 @@ from porotpu_torch.ops import dia_kernel
 from porotpu_torch.ops.dia import DIA, Dense, Transposed, device_matrix
 from porotpu_torch.ops.sparse import ELL, FieldMatrix
 from porotpu_torch.tools.dia_microbench import banded_csr
-from torch_k1_cases import (
+from torch_k1_cases import (  # noqa: F401 (one_blas_thread: a fixture)
     CSR_CASES, EDGE_CASES, K1_CASES, K2_CPU_CASES, banded_random, csr_case, offset_case,
-    rmv_case, small_build,
+    one_blas_thread, rmv_case, small_build,
 )
 
 torch.set_num_threads(1)
@@ -40,9 +41,21 @@ def build():
     return small_build()
 
 
+# The Pallas kernel's interpret cost grows with its diagonal count (each
+# band is traced and lowered in Python): on the two wide sets of the N=3
+# build, hold every STRIDE-th band of the operator's own offsets, the
+# outermost two kept.  The transposed inner set keeps its layout (dataT on
+# negated offsets, 128 inputs -> 1152 outputs); the card holds K1 against
+# the plain version on every band (tests/test_torch_gpu.py).
+STRIDE = {"solid_block_233": 4, "transposed_inner_714": 12}
+
+
 @pytest.mark.parametrize("case", K1_CASES)
 def test_dia_mv_ref_matches_pallas_interpret(case, build):
     data, offs, x, nrows = offset_case(case, build)
+    if case in STRIDE:
+        keep = sorted(set(range(0, len(offs), STRIDE[case])) | {len(offs) - 1})
+        data, offs = data[keep], tuple(offs[k] for k in keep)
     data = data.astype(np.float32)
     x = x.astype(np.float32)
     y = dia_kernel.dia_mv_ref(torch.from_numpy(data), offs, torch.from_numpy(x), nrows)
@@ -226,7 +239,7 @@ def test_fieldmatrix_matches_porotpu_f64():
     assert isinstance(p.A_dev, FieldMatrix)
     assert sorted(p.A_dev.blocks.keys()) == sorted(r + c for r, c in jp.A_dev.blocks)
     x = np.random.default_rng(7).normal(size=sum(p.padded_sizes))
-    want = np.asarray(jp.A_dev.matvec(jnp.asarray(x)))
+    want = np.asarray(jax.jit(lambda A, v: A.matvec(v))(jp.A_dev, jnp.asarray(x)))
     for op in (p.A_dev, to_torch(jp.A_dev)):
         got = op.matvec(torch.from_numpy(x)).numpy()
         np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12 * np.abs(want).max())

@@ -27,6 +27,7 @@ from porotpu_torch.fem.dofmap import FunctionSpace, vertex_embedding
 from porotpu_torch.fem.mesh import generate_cube
 from porotpu_torch.models.benchmarks import BENCH_OVERRIDES, swelling_3d
 from porotpu_torch.models.poromechanics import Poromechanics
+from torch_k1_cases import one_blas_thread  # noqa: F401
 
 F64 = dict(BENCH_OVERRIDES, dtype="float64")
 

@@ -48,6 +48,7 @@ from porotpu_torch.drivers import fluid_pressure, solid, swelling
 from porotpu_torch.models import subsystems
 from porotpu_torch.solvers.anderson import gram_ls_alpha
 from porotpu_torch.solvers.convergence import FieldwiseTest
+from torch_k1_cases import one_blas_thread  # noqa: F401
 
 torch.set_num_threads(1)
 

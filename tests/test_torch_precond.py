@@ -20,6 +20,7 @@ import torch
 from porotpu.models import benchmarks as jbench
 from porotpu_torch.convert import to_torch
 from porotpu_torch.models.benchmarks import BENCH_OVERRIDES, swelling_3d
+from torch_k1_cases import one_blas_thread  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -46,16 +47,24 @@ def _parts(pc, jax_side):
 
 @pytest.fixture(scope="module")
 def jax_applies(builds):
-    """porotpu's apply of each part on a seeded vector: {part: (x, y)}."""
+    """porotpu's apply of each part, {part: (x, y)}, from one jitted apply
+    of its block PC on a seeded vector x: the bench's solid solve is one
+    AMG V-cycle, so the block apply's solid rows are the AMG's apply on x's
+    solid rows, and its fluid-pressure rows the Schur fieldsplit's apply on
+    x's fp rows less the coupling of the solid result (porotpu's 2-way
+    sweep, porotpu/precond/block.py, the coupling computed alongside)."""
     jp, _ = builds
-    out = {}
-    for part, jop in _parts(jp.pc, True).items():
-        n = {"amg_solid": jp.ns_p, "schur_fieldsplit": jp.nf_p + jp.np_p}.get(
-            part, sum(jp.padded_sizes)
-        )
-        x = np.random.default_rng(21).normal(size=n)
-        out[part] = x, np.asarray(jax.jit(lambda o, v: o(v))(jop, jnp.asarray(x)))
-    return out
+    assert jp.pc.solve_s.kind == "amg" and jp.pc.solve_s.iters == 1
+    ns = jp.ns_p
+    x = np.random.default_rng(21).normal(size=sum(jp.padded_sizes))
+
+    def apply(pc, v):
+        y = pc(v)
+        ys = y[:ns]
+        return y, v[ns:] - jnp.concatenate([pc.Pfs.matvec(ys), pc.Pps.matvec(ys)])
+
+    y, z = (np.array(a) for a in jax.jit(apply)(jp.pc, jnp.asarray(x)))
+    return {"amg_solid": (x[:ns], y[:ns]), "schur_fieldsplit": (z, y[ns:]), "block_pc": (x, y)}
 
 
 @pytest.mark.parametrize("source", ["converted", "own_build"])

@@ -41,6 +41,7 @@ from porotpu_torch.models import benchmarks
 from porotpu_torch.precond import amg
 from porotpu_torch.precond.inner import InnerSolver
 from porotpu_torch.utils.parser import Parser
+from torch_k1_cases import one_blas_thread  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -9,8 +9,6 @@ bench's true-residual field-wise guard (bench.py:300-310).
 
 import os
 import re
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -20,6 +18,7 @@ from porotpu.models import benchmarks as jbench
 from porotpu_torch.models.benchmarks import BENCH_OVERRIDES, swelling_3d
 from porotpu_torch.solvers.convergence import FieldwiseTest
 from porotpu_torch.utils.options import OptionsDB
+from torch_k1_cases import import_checks, one_blas_thread  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -69,29 +68,11 @@ def test_slice_true_residual_guard(solved):
 def test_port_runs_without_jax(jax_blocked):
     """Import, build and solve swelling-3d N=2 with jax unimportable, and
     with jax importable: the port must import neither jax nor any module
-    named porotpu either way."""
-    code = (
-        "import sys\n"
-        + ("sys.modules['jax'] = None\n" if jax_blocked else "")
-        + "from porotpu_torch.models.benchmarks import BENCH_OVERRIDES, swelling_3d\n"
-        "p = swelling_3d(2, overrides=dict(BENCH_OVERRIDES, dtype='float64'), device='cpu')\n"
-        "its = p.solve()\n"
-        "assert p.last_result.converged, its\n"
-        "jax = [m for m in sys.modules if m.split('.')[0] == 'jax']\n"
-        f"assert jax == {['jax'] if jax_blocked else []!r}, jax\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] == 'porotpu']\n"
-        "assert bad == [], bad\n"
-        "print('SOLVED', its[0])\n"
-    )
-    env = dict(os.environ)
-    env.pop("PORO_PLATFORM", None)
-    env["OMP_NUM_THREADS"] = "1"
-    proc = subprocess.run(
-        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
-        text=True, timeout=300,
-    )
-    assert proc.returncode == 0, proc.stderr[-2000:]
-    assert "SOLVED" in proc.stdout
+    named porotpu either way (one subprocess, each case from a fresh import
+    of the port)."""
+    got = import_checks()["jax_blocked" if jax_blocked else "jax_importable"]
+    assert got["converged"], got["iterations"]
+    assert got["foreign"] == (["jax"] if jax_blocked else []), got["foreign"]
 
 
 def test_port_sources_never_import_jax():

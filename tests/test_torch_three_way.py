@@ -36,6 +36,7 @@ from porotpu_torch.solvers.convergence import FieldwiseTest
 from porotpu_torch.tools import bench
 from porotpu_torch.utils import roofline
 from porotpu_torch.utils.parser import Parser
+from torch_k1_cases import one_blas_thread  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -1,9 +1,18 @@
-"""Shared inputs of the port's kernel tests (CPU parity and the card).
+"""Shared inputs of the port's kernel tests (CPU parity and the card), the
+one subprocess the import checks of the port's tests share, and the
+fixture that runs each CPU test file's BLAS on one thread.
 
 Imports no jax, so the card-only tests can use it where jax is absent.
 """
 
+import functools
+import json
+import os
+import subprocess
+import sys
+
 import numpy as np
+import pytest
 import scipy.sparse as sp
 
 from porotpu_torch.models.benchmarks import BENCH_OVERRIDES, swelling_3d
@@ -141,3 +150,65 @@ def rmv_case(name, build):
         D = build.A_dev.block("f", "p").inner
         assert len(D.offsets) >= 700 and D.ne != D.nrows
     return rng.normal(size=D.data.shape), D.offsets, rng.normal(size=D.nrows), D.ne
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_blas_thread():
+    """numpy's and scipy's BLAS on one thread while a CPU test file runs, as
+    the files run torch (``torch.set_num_threads(1)``): at these sizes more
+    threads add CPU time and no speed.  Imported by each file; the limit
+    lifts at the file's end."""
+    from threadpoolctl import threadpool_limits
+
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
+
+
+# One fresh interpreter runs the port three ways, each from a fresh import
+# of porotpu_torch: swelling-3d N=2 in f64 with jax importable, then with
+# jax unimportable, then the swelling driver as a module at N=2.  Each
+# records the modules of jax and porotpu loaded by then.
+_IMPORT_CHECK = """
+import contextlib, io, json, runpy, sys
+
+def fresh():
+    for m in [m for m in sys.modules if m.split('.')[0] == 'porotpu_torch']:
+        del sys.modules[m]
+
+def foreign():
+    return sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'porotpu'))
+
+out = {}
+for blocked in (False, True):
+    fresh()
+    if blocked:
+        sys.modules['jax'] = None
+    from porotpu_torch.models.benchmarks import BENCH_OVERRIDES, swelling_3d
+    p = swelling_3d(2, overrides=dict(BENCH_OVERRIDES, dtype='float64'), device='cpu')
+    its = p.solve()
+    out['jax_blocked' if blocked else 'jax_importable'] = dict(
+        converged=bool(p.last_result.converged), iterations=its, foreign=foreign())
+fresh()
+sys.argv = ['swelling', '-N', '2', '--device', 'cpu']
+text = io.StringIO()
+with contextlib.redirect_stdout(text):
+    runpy.run_module('porotpu_torch.drivers.swelling', run_name='__main__')
+out['driver'] = dict(stdout=text.getvalue(), foreign=foreign())
+print('IMPORT_CHECK ' + json.dumps(out))
+"""
+
+
+@functools.cache
+def import_checks():
+    """{"jax_importable" | "jax_blocked": {converged, iterations, foreign},
+    "driver": {stdout, foreign}} from one subprocess (see _IMPORT_CHECK)."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env.pop("PORO_PLATFORM", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_CHECK], cwd=repo, env=env, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("IMPORT_CHECK ")][-1]
+    return json.loads(line.removeprefix("IMPORT_CHECK "))
