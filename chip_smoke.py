@@ -824,7 +824,7 @@ def main():
           f"data sheet {mb.HBM_BYTES_PER_S / 1e9:.0f} GB/s", flush=True)
 
     # -- 2. main path, K1: swelling-3d N=13 f32, one step ------------------
-    f32 = bench.build_problem("float32", device=dev)
+    f32 = bench.build_problem("float32", device=dev, cache_dir=None)
     dofs, padded = f32.W.num_dofs, f32.padded_sizes
     print(f"dofs={dofs} padded sizes={padded}")
     check(dofs == 120842, f"dofs {dofs} != 120842")
@@ -841,7 +841,7 @@ def main():
 
     # -- 3. K2's path: swelling-3d N=13 f64, one step -----------------------
     print("-- f64 (K2 path)", flush=True)
-    f64 = bench.build_problem("float64", device=dev)
+    f64 = bench.build_problem("float64", device=dev, cache_dir=None)
     counts64, launches64 = path_run("float64", f64, dev, torch, dia_kernel, bench,
                                     peaks[torch.float64])
     check(counts64["dia_rmv"] > 0, "K2 was never launched on the f64 path")
@@ -857,7 +857,7 @@ def main():
 
     # -- 3b. CastPC: the f64 solve with the PC built in f32 -----------------
     print("-- f64 solve, f32 PC (CastPC; bench.py's f64 datapoint)", flush=True)
-    cast = bench.build_problem("float64", pc_dtype="float32", device=dev)
+    cast = bench.build_problem("float64", pc_dtype="float32", device=dev, cache_dir=None)
     counts_c, launches_c = path_run("float64, PC in float32", cast, dev, torch, dia_kernel,
                                     bench, peaks[torch.float64])
     check(type(cast.pc).__name__ == "CastPC", "pc dtype float32 built no CastPC")
@@ -1009,7 +1009,8 @@ def main():
     # -- 6. small input: the card's path against the CPU plain path --------
     small = {}
     for where in ("cuda", "cpu"):
-        p = bench.build_problem("float64", 3, device=dev if where == "cuda" else "cpu")
+        p = bench.build_problem("float64", 3, device=dev if where == "cuda" else "cpu",
+                                cache_dir=None)
         dia_kernel.reset_counts()
         its = p.solve()
         small[where] = (its[0], p.sol.cpu().numpy(), dict(dia_kernel.COUNTS))

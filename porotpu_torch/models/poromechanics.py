@@ -16,8 +16,10 @@ solver types gmres/fgmres (both run flexible GMRES), cg and aar,
 Anderson acceleration of the PC output (``inner accel order``), both RHS modes
 (``loads-only`` and the reference drivers' ``full-residual``, whose
 history products run on the device operators ``H_dev``), ``solver
-chunk`` and ``print_timings``.  The other branches raise NotImplementedError naming
-their ROADMAP item.
+chunk``, ``print_timings`` and the solver cache (``solver cache path``:
+the host-built state pickled before it moves to the device, restored by
+``try_load_solver_cache``).  The other branches raise NotImplementedError
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -36,7 +38,9 @@ from ..ops.dia import device_matrix
 from ..ops.sparse import FieldMatrix
 from ..precond.amg import rigid_body_modes
 from ..precond.block import BlockPreconditioner, CastPC
-from ..precond.inner import ITERATED, InnerConfig, InnerSolver, build_inner_solver
+from ..precond.inner import (
+    ITERATED, InnerConfig, InnerSolver, build_inner_solver, remap_inner_iters,
+)
 from ..precond.schur import build_schur_fieldsplit
 from ..solvers.aar import aar
 from ..solvers.cg import cg
@@ -142,6 +146,8 @@ class Poromechanics(AbstractPhysics):
         self.iteration_log = []
         self.t_setup = 0.0
         self.t_solve_total = 0.0
+        self.t_cache_save = 0.0  # the cache's pickle, on the setup's thread
+        self.cache_writer = None  # the thread writing it to disk
         self.pc_applies = 0
 
     # ------------------------------------------------------------------
@@ -282,24 +288,86 @@ class Poromechanics(AbstractPhysics):
 
     # ------------------------------------------------------------------
     def create_solver(self):
-        """Build the operators and the block PC on the host, then move the
-        whole solver state to ``self.device``."""
-        p = self.parameters
-        if p.get("solver cache path"):
-            raise NotImplementedError("the solver cache is not ported yet (ROADMAP M7.5)")
+        """Build the operators and the block PC on the host, save them to
+        ``solver cache path`` when it is set, then move the whole solver
+        state to ``self.device`` (porotpu/models/poromechanics.py:397-433)."""
         t0 = _time.perf_counter()
         self._build_operators()
+        cpath = self.parameters.get("solver cache path")
+        if cpath:
+            # pickled here, on the host: the move below swaps the buffers of
+            # these same modules in place
+            t1 = _time.perf_counter()
+            self.cache_writer = self.save_solver_cache(cpath)
+            self.t_cache_save = _time.perf_counter() - t1
+        self._to_device()
+        self._finalize_solver()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.t_setup = _time.perf_counter() - t0
+        log("---- [Solver] Solver created in {}s".format(self.t_setup))
+
+    def _to_device(self):
         self.A_dev = self.A_dev.to(self.device)
         self.pc = self.pc.to(self.device)
         if self.H_dev is not None:
             self.H_dev = self.H_dev.to(self.device)
         self.bc_dofs = self.bc_dofs.to(self.device)
         self.bc_vals = self.bc_vals.to(self.device)
-        self._finalize_solver()
+
+    def solver_state(self):
+        """The solver state the cache holds (porotpu/models/poromechanics.py:712-720)."""
+        return {
+            "A_dev": self.A_dev,
+            "pc": self.pc,
+            "H_dev": self.H_dev,
+            "bc_dofs": self.bc_dofs,
+            "bc_vals": self.bc_vals,
+        }
+
+    def save_solver_cache(self, path: str):
+        """Pickle the solver state now and write it to ``path`` in the
+        background; returns the writer thread.  Call it while the state is
+        on the host, as ``create_solver`` does."""
+        from ..utils import cache
+
+        return cache.save_async(path, self.solver_state())
+
+    def try_load_solver_cache(self, path: str) -> bool:
+        """Restore the solver state from a cache file, skipping all host
+        setup, and move it to ``self.device``; returns True on success.
+        Any failure is a miss (porotpu/models/poromechanics.py:727-758)."""
+        from ..utils import cache
+
+        t0 = _time.perf_counter()
+        try:
+            st = cache.load(path)
+            if st is None:
+                return False
+            self.A_dev = st["A_dev"]
+            self.pc = st["pc"]
+            # the cache holds the PC built with the "inner iters" of its
+            # save; apply the current setting
+            ii = self.parameters.get("inner iters")
+            if ii is not None:
+                remap_inner_iters(self.pc, int(ii))
+            self.H_dev = st["H_dev"]
+            self.bc_dofs = st["bc_dofs"]
+            self.bc_vals = st["bc_vals"]
+            # the term spec derives from the parameters only (no assembly)
+            self._hist_terms = (
+                self.assembler.history_term_spec() if self.H_dev is not None else None
+            )
+            self._to_device()
+            self._finalize_solver()
+        except Exception as e:  # a stale or corrupt cache must never crash a run
+            log(f"---- [Cache] ignoring unusable solver cache {path}: {e}")
+            return False
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        self.first_timestep = False
         self.t_setup = _time.perf_counter() - t0
-        log("---- [Solver] Solver created in {}s".format(self.t_setup))
+        return True
 
     def _build_operators(self):
         """porotpu/models/poromechanics.py:453-709."""

@@ -11,6 +11,9 @@ FGMRES on the saddle fp operator, preconditioned by the Schur
 fieldsplit, until rtol 1e-12 or its iteration count).  Every banded
 product goes through ``ops.dia`` (K1, or K2 for a transpose, on the
 card).
+
+``remap_inner_iters`` applies ``inner iters`` to a restored solver
+cache's PC.
 """
 
 from __future__ import annotations
@@ -137,6 +140,36 @@ class InnerSolver(nn.Module):
             return res.x
         # plus-diag: y = S_md^-1 b + w_visc diag^-1 b (precond/schur.py dcc)
         return self.mods["base"](b) + self.wdiag * b
+
+
+# the block PC's inner solves and their labels, the reference's per-field
+# prefixes (lib/Preconditioner.py:77-92)
+BLOCK_LABELS = {"solve_s": "s", "solve_fp": "fp", "solve_f": "f", "solve_p": "p",
+                "solve_diff": "diff"}
+
+
+def remap_inner_iters(obj, iters: int):
+    """Set the iteration count of every iterated inner solve of a PC tree
+    in place, and return the tree (porotpu/precond/inner.py:202-247):
+    applies ``inner iters`` to a PC restored from a solver cache that was
+    built with another count; the payloads are reused as they are."""
+    from .block import BlockPreconditioner, CastPC
+    from .schur import SchurFieldsplit
+
+    if isinstance(obj, InnerSolver):
+        if obj.kind in ITERATED:
+            obj.iters = int(iters)
+        elif obj.kind == "plus-diag":
+            remap_inner_iters(obj.mods["base"], iters)
+    elif isinstance(obj, SchurFieldsplit):
+        remap_inner_iters(obj.solve_f, iters)
+        remap_inner_iters(obj.solve_S, iters)
+    elif isinstance(obj, BlockPreconditioner):
+        for attr in BLOCK_LABELS:
+            remap_inner_iters(getattr(obj, attr), iters)
+    elif isinstance(obj, CastPC):
+        remap_inner_iters(obj.inner, iters)
+    return obj
 
 
 def build_inner_solver(

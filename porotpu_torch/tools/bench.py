@@ -2,7 +2,11 @@
 
     python3 -m porotpu_torch.tools.bench
 
-Swelling-3d N=13, one time step's solve, one JSON line a datapoint:
+Swelling-3d N=13, one time step's solve, one JSON line a datapoint.
+``build_problem`` restores the solver from the cache file of its
+configuration in ``.cache/`` when one is there and builds (and saves) it
+otherwise, as bench.py:70-114 does; the port's files are named
+``torch_bench_<key>.pkl``, never porotpu's ``bench_<key>.pkl``.
 
 - ``datapoint(problem)``: bench.py's datapoint on a problem that has
   taken its first step (``problem.solve()``): three timed solves from zero
@@ -27,12 +31,16 @@ Every time is taken on the card; the functions raise without one, except
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import sys
+import time
 
 import torch
 
+from ..models.abstract import log
 from ..models.benchmarks import BENCH_OVERRIDES, swelling_3d
+from ..utils import cache
 from ..solvers.convergence import FieldwiseTest
 from ..utils.roofline import op_stream_time, padded_values, stream_peak
 from .dia_microbench import HBM_BYTES_PER_S
@@ -45,12 +53,36 @@ IR_ATOL, IR_RTOL, IR_PASSES = 1e-8, 1e-6, 4
 SOLVE_REPS, IR_REPS = 3, 2
 
 
-def build_problem(dtype="float32", N=13, pc_dtype=None, device="cuda"):
-    """The bench configuration at ``dtype``, its PC at ``pc_dtype``."""
+def cache_path(dtype="float32", N=13, pc_dtype=None, cache_dir=".cache"):
+    """The solver cache file of a bench configuration.  ``impl`` keys the
+    port apart from porotpu, and the name's prefix keeps the port from ever
+    opening porotpu's pickle (which would import jax)."""
+    key = cache.config_key(
+        impl="torch", bench="swelling3d", N=N, dt=dtype, pcdt=pc_dtype or dtype,
+        overrides=sorted(BENCH_OVERRIDES.items()),
+    )
+    return os.path.join(cache_dir, f"torch_bench_{key}.pkl")
+
+
+def build_problem(dtype="float32", N=13, pc_dtype=None, device="cuda", cache_dir=".cache"):
+    """The bench configuration at ``dtype``, its PC at ``pc_dtype``, with its
+    solver restored from the cache in ``cache_dir`` or built and saved there
+    (bench.py:70-114); ``cache_dir`` None builds without a cache."""
     over = dict(BENCH_OVERRIDES, dtype=dtype)
     if pc_dtype is not None and pc_dtype != dtype:
         over["pc dtype"] = pc_dtype
-    return swelling_3d(N, overrides=over, device=device)
+    path = None if cache_dir is None else cache_path(dtype, N, over.get("pc dtype"), cache_dir)
+    if path is not None:
+        over["solver cache path"] = path
+    t0 = time.perf_counter()
+    problem = swelling_3d(N, overrides=over, device=device)
+    if path is not None and problem.try_load_solver_cache(path):
+        log(f"setup (cached): {time.perf_counter() - t0:.1f}s, dofs={problem.W.num_dofs}")
+    else:
+        problem.create_solver()
+        problem.first_timestep = False
+        log(f"setup: {time.perf_counter() - t0:.1f}s, dofs={problem.W.num_dofs}")
+    return problem
 
 
 def _ready(problem):

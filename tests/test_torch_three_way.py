@@ -110,9 +110,7 @@ def test_cast_pc_slice_matches_porotpu():
 def f32_pair():
     """bench.py's f32 configuration at N=3, built by the port and by
     porotpu (solvers created, not solved)."""
-    p32 = bench.build_problem("float32", 3, device="cpu")
-    p32.create_solver()
-    p32.first_timestep = False
+    p32 = bench.build_problem("float32", 3, device="cpu", cache_dir=None)
     jp = jbench.swelling_3d(3, overrides=dict(BENCH_OVERRIDES))
     jp.create_solver()
     return p32, jp
@@ -124,9 +122,7 @@ def test_refinement_reaches_f64_from_f32_solves(f32_pair):
     with the field-wise test met in f64 at atol 1e-8 / rtol 1e-6 within
     its 4 passes."""
     p32, jp = f32_pair
-    p64 = bench.build_problem("float64", 3, pc_dtype="float32", device="cpu")
-    p64.create_solver()
-    p64.first_timestep = False
+    p64 = bench.build_problem("float64", 3, pc_dtype="float32", device="cpu", cache_dir=None)
     b64 = p64.get_rhs(p64.t0 + p64.dt)
     x, info = bench.refine(p32, p64.A_dev, b64, p64.padded_sizes)
     assert 1 <= info["passes"] <= bench.IR_PASSES

@@ -164,12 +164,14 @@ def one_blas_thread():
         yield
 
 
-# One fresh interpreter runs the port three ways, each from a fresh import
+# One fresh interpreter runs the port four ways, each from a fresh import
 # of porotpu_torch: swelling-3d N=2 in f64 with jax importable, then with
-# jax unimportable, then the swelling driver as a module at N=2.  Each
-# records the modules of jax and porotpu loaded by then.
+# jax unimportable; with jax still unimportable, that problem built with a
+# solver cache path and restored from its file into a fresh problem; then
+# the swelling driver as a module at N=2.  Each records the modules of jax
+# and porotpu loaded by then.
 _IMPORT_CHECK = """
-import contextlib, io, json, runpy, sys
+import contextlib, io, json, runpy, sys, tempfile
 
 def fresh():
     for m in [m for m in sys.modules if m.split('.')[0] == 'porotpu_torch']:
@@ -188,6 +190,15 @@ for blocked in (False, True):
     its = p.solve()
     out['jax_blocked' if blocked else 'jax_importable'] = dict(
         converged=bool(p.last_result.converged), iterations=its, foreign=foreign())
+with tempfile.TemporaryDirectory() as d:
+    over = dict(BENCH_OVERRIDES, dtype='float64')
+    p = swelling_3d(2, overrides=dict(over, **{'solver cache path': d + '/s.pkl'}), device='cpu')
+    fresh_its = p.solve()
+    p.cache_writer.join(timeout=60)
+    q = swelling_3d(2, overrides=over, device='cpu')
+    restored = q.try_load_solver_cache(d + '/s.pkl')
+    out['cache_restore'] = dict(restored=restored, iterations=q.solve(),
+                                fresh_iterations=fresh_its, foreign=foreign())
 fresh()
 sys.argv = ['swelling', '-N', '2', '--device', 'cpu']
 text = io.StringIO()
@@ -201,6 +212,7 @@ print('IMPORT_CHECK ' + json.dumps(out))
 @functools.cache
 def import_checks():
     """{"jax_importable" | "jax_blocked": {converged, iterations, foreign},
+    "cache_restore": {restored, iterations, fresh_iterations, foreign},
     "driver": {stdout, foreign}} from one subprocess (see _IMPORT_CHECK)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, OMP_NUM_THREADS="1")
