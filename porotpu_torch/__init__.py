@@ -1,14 +1,15 @@
 """porotpu_torch — the PyTorch/CUDA port of ``porotpu`` for one NVIDIA H100.
 
 Same layout and names as ``porotpu``: ``fem`` (meshes, Lagrange spaces,
-assembly, Dirichlet BCs), ``ops`` (banded storage and the hand-written
+assembly, Dirichlet BCs, mesh files), ``ops`` (banded storage and the hand-written
 CUDA kernels), ``solvers`` (GMRES and FGMRES, CG, AAR, Anderson
 acceleration, Chebyshev, the field-wise convergence test), ``precond``
 (AMG, inner solvers, Schur fieldsplit, 2-way and 3-way block
 preconditioners), ``models`` (forms, loads, the poromechanics problem,
 its benchmarks and the solid and fluid-pressure subsystems), ``drivers``
-(the five reference drivers) and ``tools`` (bench.py's datapoints, the
-banded-matvec microbench).  ``convert``
+(the five reference drivers), ``utils`` (the options files and the
+parser, the solver cache, solution export and checkpoints) and ``tools``
+(bench.py's datapoints, the banded-matvec microbench).  ``convert``
 carries porotpu's device objects across for the parity tests.
 
 The port imports torch, numpy and scipy, and nothing named ``porotpu``:

@@ -1,10 +1,11 @@
-# Copy of porotpu/models/abstract.py; it prints through ``log`` and has no solution export yet.
+# Copy of porotpu/models/abstract.py; it prints through ``log``.
 """Time-stepping physics base class (reference lib/AbstractPhysics.py).
 
 Owns the time loop ``solve()``: advance t by dt, call solve_time_step(t),
 log per-step iteration counts and wall time (reference
 lib/AbstractPhysics.py:59-82 prints
-"-------- Solved time t=... . N iterations in T s").
+"-------- Solved time t=... . N iterations in T s"), optionally export
+solution snapshots.
 """
 
 from __future__ import annotations
@@ -37,8 +38,27 @@ class AbstractPhysics:
         self.dt = self.parameters["dt"]
         self.output_solutions = self.parameters.get("output solutions", False)
         self.output_name = self.parameters["output name"]
-        if self.output_solutions:
-            raise NotImplementedError("solution export is not ported yet (ROADMAP M7.5)")
+        self._exporter = None
+
+    def export(self, t):
+        """Export current solution snapshot as an XDMF/HDF5 time series
+        (the reference's format, lib/AbstractPhysics.py:47-57) or VTU/PVD
+        via ``parameters["output format"] = "vtu"``; lazy-opens the file."""
+        if self._exporter is None:
+            fmt = self.parameters.get("output format", "xdmf")
+            base = "output/{}".format(self.output_name)
+            if fmt == "vtu":
+                from ..utils.io import TimeSeriesWriter
+
+                self._exporter = TimeSeriesWriter(base, self.mesh)
+            else:
+                from ..utils.io import XDMFWriter
+
+                self._exporter = XDMFWriter(base, self.mesh)
+        self._exporter.write(t, self.solution_fields())
+
+    def solution_fields(self) -> dict:  # pragma: no cover - interface
+        raise NotImplementedError
 
     def solve_time_step(self, t) -> int:  # pragma: no cover - interface
         raise NotImplementedError
@@ -46,6 +66,9 @@ class AbstractPhysics:
     def solve(self):
         """Run the full time loop; returns per-step iteration counts."""
         t0_simulation = _time.perf_counter()
+        if self.output_solutions:
+            self.export(self.t0)
+
         current_time = _time.perf_counter()
         iterations = []
         while self.t < self.tf - 1e-12:
@@ -57,6 +80,8 @@ class AbstractPhysics:
                     self.t, its, _time.perf_counter() - current_time
                 )
             )
+            if self.output_solutions:
+                self.export(self.t)
             current_time = _time.perf_counter()
         log(
             "Total simulation time = {}s\n".format(

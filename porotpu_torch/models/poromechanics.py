@@ -16,10 +16,10 @@ solver types gmres/fgmres (both run flexible GMRES), cg and aar,
 Anderson acceleration of the PC output (``inner accel order``), both RHS modes
 (``loads-only`` and the reference drivers' ``full-residual``, whose
 history products run on the device operators ``H_dev``), ``solver
-chunk``, ``print_timings`` and the solver cache (``solver cache path``:
+chunk``, ``print_timings``, the solver cache (``solver cache path``:
 the host-built state pickled before it moves to the device, restored by
-``try_load_solver_cache``).  The other branches raise NotImplementedError
-naming their ROADMAP item.
+``try_load_solver_cache``) and the export of ``solution_fields``.  The
+inner monitors raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -757,6 +757,24 @@ class Poromechanics(AbstractPhysics):
                 )
             )
         return total_its
+
+    def solution_fields(self):
+        """Vertex values of the three fields (mesh-vertex order) for export
+        (porotpu/models/poromechanics.py:953-971): the nodes are numbered
+        lattice-lexicographically, so each space's ``vert_node`` map picks
+        the vertex values."""
+        dim = self.mesh.dim
+        vs = self.W.space("s").vert_node
+        vf = self.W.space("f").vert_node
+        vp = self.W.space("p").vert_node
+        us = self.us_nm1.cpu().numpy()[: self.ns].reshape(-1, dim)[vs]
+        uf = self.uf_nm1.cpu().numpy()[: self.nf].reshape(-1, dim)[vf]
+        p = self.p_nm1.cpu().numpy()[: self.npp][vp]
+        return {
+            "displacement": us,
+            "fluid velocity": uf,
+            "pressure": p,
+        }
 
     def unpadded_solution(self):
         """Solution vector in the original (unpadded) dof numbering."""

@@ -23,11 +23,15 @@ aar`` on both sides (swelling N=4 inexact), also under
 Also: the storage format device_matrix chose for each operator of
 footing (N=3 with banded transposes, N=10 with ELL coupling blocks)
 against porotpu's, the options files and the CLI parser against
-porotpu's, a driver run as a module with jax unimportable, and the
-features that still raise.
+porotpu's, a driver run as a module with jax unimportable, the features
+that still raise (and, at N=2, the solver cache and export ROADMAP M7.5
+ported), the exported solution fields against porotpu's, and
+checkpoints crossing between the packages.
 """
 
 import collections
+import contextlib
+import copy
 import dataclasses
 import os
 
@@ -285,19 +289,20 @@ def _swelling_2d(**overrides):
         ("monitors.*M7\\.6",
          lambda: swelling.setup(["-N", "2", "--inner-monitor", "--device", "cpu"])
          .create_solver()),
-        # the solver cache is ported (ROADMAP M7.5): see the body
-        (None, None),
-        ("export.*M7\\.5", lambda: _swelling_2d(**{"output solutions": True})),
+        # the solver cache and export are ported (ROADMAP M7.5): see the body
+        ("cache", None),
+        ("export", None),
         ("monitors.*M7\\.6", lambda: _swelling_2d(**{"inner monitor": True}).create_solver()),
     ],
     ids=["outer_cg", "cache", "export", "inner_monitor"],
 )
-def test_other_unported_features_raise(what, attempt, tmp_path):
-    """Each unported feature raises naming its ROADMAP item.  The cache
-    case runs its ported feature at swelling N=2: ``solver cache path``
-    saves the solver, and a fresh problem restores it and takes the same
-    iterations to the same solution."""
-    if attempt is None:
+def test_other_unported_features_raise(what, attempt, tmp_path, monkeypatch):
+    """Each unported feature raises naming its ROADMAP item.  The cache and
+    export cases run their ported features at swelling N=2: ``solver cache
+    path`` saves the solver, and a fresh problem restores it and takes the
+    same iterations to the same solution; ``output solutions`` writes
+    porotpu's XDMF time series (t0 and each step) into output/."""
+    if what == "cache":
         path = str(tmp_path / "swelling.pkl")
         p = _swelling_2d(**{"solver cache path": path})
         p.solve()
@@ -307,5 +312,76 @@ def test_other_unported_features_raise(what, attempt, tmp_path):
         q.solve()
         assert q.iteration_log == p.iteration_log and torch.equal(q.sol, p.sol)
         return
+    if what == "export":
+        import h5py
+
+        monkeypatch.chdir(tmp_path)
+        p = _swelling_2d(**{"output solutions": True, "tf": 0.2})
+        p.solve()
+        p._exporter.close()
+        assert sorted(os.listdir("output")) == ["swelling.h5", "swelling.xdmf"]
+        with h5py.File("output/swelling.h5") as f:
+            assert sorted(f) == ["mesh", "step_000000", "step_000001", "step_000002"]
+            u = f["step_000002/displacement"][...]
+        np.testing.assert_array_equal(u, p.solution_fields()["displacement"])
+        return
     with pytest.raises(NotImplementedError, match=what):
         attempt()
+
+
+def test_solution_fields_match_porotpu():
+    """The exported vertex values (``vert_node`` of each space) of the last
+    step of swelling_defaults_3_steps, to 1e-10 of each field's largest."""
+    jp, p = _solved("swelling_defaults_3_steps")
+    got, want = p.solution_fields(), jp.solution_fields()
+    assert list(got) == list(want) == ["displacement", "fluid velocity", "pressure"]
+    for k, w in want.items():
+        w = np.asarray(w)
+        assert got[k].shape == w.shape == ((p.mesh.num_vertices, 2) if k != "pressure"
+                                           else (p.mesh.num_vertices,)), k
+        assert np.abs(got[k] - w).max() <= 1e-10 * np.abs(w).max(), k
+
+
+# the time-stepping state a step changes, put back after a test that steps
+# a shared run further
+STEP_STATE = ("t", "us_nm1", "us_nm2", "uf_nm1", "p_nm1", "sol", "last_result", "last_rhs",
+              "iteration_log", "pc_applies", "t_solve_total")
+
+
+@contextlib.contextmanager
+def _stepped_back(*problems):
+    saved = [{k: copy.copy(getattr(q, k)) for k in STEP_STATE if hasattr(q, k)}
+             for q in problems]
+    try:
+        yield
+    finally:
+        for q, state in zip(problems, saved):
+            for k, v in state.items():
+                setattr(q, k, v)
+
+
+def test_checkpoints_cross_between_packages(tmp_path):
+    """After swelling_defaults_3_steps' three steps, porotpu's checkpoint
+    resumes the port's problem and the port's resumes porotpu's for a
+    fourth step (its full-residual RHS reads every history field): the same
+    count on both sides, and on each side the count and x of continuing its
+    own state, x within 1e-10 relative.  Both problems are put back."""
+    from porotpu.utils import io as jio
+    from porotpu_torch.utils import io
+
+    jp, p = _solved("swelling_defaults_3_steps")
+    jpath, path = str(tmp_path / "porotpu.npz"), str(tmp_path / "port.npz")
+    jio.save_checkpoint(jpath, jp, jp.t)
+    io.save_checkpoint(path, p, p.t)
+    with _stepped_back(jp, p):
+        its_own, jits_own = p.solve_time_step(p.t + p.dt), jp.solve_time_step(jp.t + jp.dt)
+        x_own, jx_own = p.sol.numpy(), np.asarray(jp.sol)
+    with _stepped_back(jp, p):
+        t, jt = io.load_checkpoint(jpath, p), jio.load_checkpoint(path, jp)
+        assert t == jt == p.t == jp.t and p.us_nm2.dtype == torch.float64
+        its, jits = p.solve_time_step(t + p.dt), jp.solve_time_step(jt + jp.dt)
+        x, jx = p.sol.numpy(), np.asarray(jp.sol)
+    assert its == jits == its_own == jits_own
+    for a, b in ((x, jx), (x, x_own), (jx, jx_own), (x_own, jx_own)):
+        assert np.abs(a - b).max() <= 1e-10 * np.abs(b).max()
+    assert p.iteration_log == jp.iteration_log and len(p.iteration_log) == 3

@@ -86,7 +86,7 @@ def test_port_sources_never_import_jax():
         assert any(os.sep + sub + os.sep in f for f in files), sub
     for mod in ("solvers/aar.py", "solvers/anderson.py", "solvers/basic.py", "solvers/cg.py",
                 "models/subsystems.py", "drivers/solid.py", "drivers/fluid_pressure.py",
-                "utils/cache.py"):
+                "utils/cache.py", "utils/io.py", "fem/meshio.py"):
         assert os.path.join(REPO, "porotpu_torch", *mod.split("/")) in files, mod
     bad = [f for f in files if pat.search(open(f).read())]
     assert bad == []
