@@ -18,8 +18,8 @@ Anderson acceleration of the PC output (``inner accel order``), both RHS modes
 history products run on the device operators ``H_dev``), ``solver
 chunk``, ``print_timings``, the solver cache (``solver cache path``:
 the host-built state pickled before it moves to the device, restored by
-``try_load_solver_cache``) and the export of ``solution_fields``.  The
-inner monitors raise NotImplementedError naming their ROADMAP item.
+``try_load_solver_cache``), the inner monitors (``inner monitor``) and
+the export of ``solution_fields``.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ from ..ops.sparse import FieldMatrix
 from ..precond.amg import rigid_body_modes
 from ..precond.block import BlockPreconditioner, CastPC
 from ..precond.inner import (
-    ITERATED, InnerConfig, InnerSolver, build_inner_solver, remap_inner_iters,
+    ITERATED, InnerConfig, InnerSolver, build_inner_solver, remap_inner_iters, set_inner_monitor,
 )
 from ..precond.schur import build_schur_fieldsplit
 from ..solvers.aar import aar
@@ -607,8 +607,10 @@ class Poromechanics(AbstractPhysics):
         ``solver type`` as in porotpu (:790-795).
         """
         p = self.parameters
-        if p.get("inner monitor", False):
-            raise NotImplementedError("inner monitors are not ported yet (ROADMAP M7.6)")
+        if bool(p.get("inner monitor", False)):
+            # the reference's per-field inner KSP monitors
+            # (lib/Preconditioner.py:94-100, lib/Parser.py:27-28)
+            set_inner_monitor(self.pc, True)
         solver_type = p.get("solver type", "gmres")
         rtol = float(p.get("solver rtol", 1e-6))
         atol = float(p.get("solver atol", 1e-8))

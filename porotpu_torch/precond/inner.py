@@ -13,7 +13,10 @@ product goes through ``ops.dia`` (K1, or K2 for a transpose, on the
 card).
 
 ``remap_inner_iters`` applies ``inner iters`` to a restored solver
-cache's PC.
+cache's PC; ``set_inner_monitor`` turns on the per-field inner monitors
+(reference lib/Preconditioner.py:94-100): after each apply of a solver
+that holds its block operator, ``|b - A x|`` is printed under the
+block's label, at the cost of one more product and one host read.
 """
 
 from __future__ import annotations
@@ -76,6 +79,8 @@ KINDS = (
 )
 # the kinds whose iteration count "inner iters" sets
 ITERATED = ("cg+amg", "cg", "chebyshev", "amg")
+# an inner monitor's line, porotpu's format (porotpu/precond/inner.py:130)
+MONITOR_LINE = "  [inner {label}] |r|={r:.4e}"
 
 
 class InnerSolver(nn.Module):
@@ -83,10 +88,13 @@ class InnerSolver(nn.Module):
 
     ``payload`` maps names to modules (``amg``, ``A``, ``base``, ``fs``) or tensors
     (``dinv``, ``inv``, ``wdiag``); modules become submodules and tensors
-    buffers, so ``.to(device)`` moves the whole solver.
+    buffers, so ``.to(device)`` moves the whole solver.  With ``monitor``
+    each apply of a kind that holds ``A`` prints its residual under
+    ``label`` (porotpu/precond/inner.py:127-134).
     """
 
-    def __init__(self, kind, payload=None, iters=0, lmax=1.0, cheb_frac=30.0):
+    def __init__(self, kind, payload=None, iters=0, lmax=1.0, cheb_frac=30.0,
+                 monitor=False, label=""):
         super().__init__()
         if kind not in KINDS:
             raise ValueError(f"unknown inner solver kind {kind!r}; kinds: {', '.join(KINDS)}")
@@ -94,6 +102,8 @@ class InnerSolver(nn.Module):
         self.iters = iters
         self.lmax = float(lmax)
         self.cheb_frac = float(cheb_frac)
+        self.monitor = bool(monitor)
+        self.label = label
         payload = payload or {}
         self.mods = nn.ModuleDict(
             {k: v for k, v in payload.items() if isinstance(v, nn.Module)}
@@ -106,6 +116,13 @@ class InnerSolver(nn.Module):
         return self.dinv * r
 
     def forward(self, b):
+        x = self._solve(b)
+        if self.monitor and "A" in self.mods:
+            r = torch.linalg.vector_norm(b - self.mods["A"].matvec(x)).item()
+            print(MONITOR_LINE.format(label=self.label or self.kind, r=r), flush=True)
+        return x
+
+    def _solve(self, b):
         k = self.kind
         if k == "identity":
             return b
@@ -142,8 +159,8 @@ class InnerSolver(nn.Module):
         return self.mods["base"](b) + self.wdiag * b
 
 
-# the block PC's inner solves and their labels, the reference's per-field
-# prefixes (lib/Preconditioner.py:77-92)
+# the block PC's inner solves and their monitor labels, the reference's
+# per-field prefixes (lib/Preconditioner.py:77-92)
 BLOCK_LABELS = {"solve_s": "s", "solve_fp": "fp", "solve_f": "f", "solve_p": "p",
                 "solve_diff": "diff"}
 
@@ -169,6 +186,33 @@ def remap_inner_iters(obj, iters: int):
             remap_inner_iters(getattr(obj, attr), iters)
     elif isinstance(obj, CastPC):
         remap_inner_iters(obj.inner, iters)
+    return obj
+
+
+def set_inner_monitor(obj, enable: bool, label: str = ""):
+    """Turn the inner monitors of a PC tree on or off in place, and return
+    the tree (porotpu/precond/inner.py:249-298).  The block PC's solves
+    take ``BLOCK_LABELS``, a Schur fieldsplit's ``<label>_f`` and
+    ``<label>_S`` (``fp_f``, ``fp_S``), the dcc Schur's base solve its
+    composite's label."""
+    from .block import BlockPreconditioner, CastPC
+    from .schur import SchurFieldsplit
+
+    if isinstance(obj, InnerSolver):
+        obj.monitor = bool(enable)
+        obj.label = label or obj.label
+        if obj.kind == "plus-diag":
+            set_inner_monitor(obj.mods["base"], enable, obj.label)
+    elif isinstance(obj, SchurFieldsplit):
+        set_inner_monitor(obj.solve_f, enable, (label or "fp") + "_f")
+        set_inner_monitor(obj.solve_S, enable, (label or "fp") + "_S")
+    elif isinstance(obj, BlockPreconditioner):
+        for attr, lab in BLOCK_LABELS.items():
+            child = getattr(obj, attr)
+            if isinstance(child, (InnerSolver, SchurFieldsplit)):
+                set_inner_monitor(child, enable, lab)
+    elif isinstance(obj, CastPC):
+        set_inner_monitor(obj.inner, enable, label)
     return obj
 
 

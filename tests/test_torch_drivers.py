@@ -24,9 +24,9 @@ Also: the storage format device_matrix chose for each operator of
 footing (N=3 with banded transposes, N=10 with ELL coupling blocks)
 against porotpu's, the options files and the CLI parser against
 porotpu's, a driver run as a module with jax unimportable, the features
-that still raise (and, at N=2, the solver cache and export ROADMAP M7.5
-ported), the exported solution fields against porotpu's, and
-checkpoints crossing between the packages.
+ROADMAP M7.5 and M7.6 ported (the solver cache, export, inner monitors)
+at N=2, the inner-monitor lines against porotpu's, the exported solution
+fields against porotpu's, and checkpoints crossing between the packages.
 """
 
 import collections
@@ -34,6 +34,7 @@ import contextlib
 import copy
 import dataclasses
 import os
+import re
 
 import numpy as np
 import pytest
@@ -281,27 +282,21 @@ def _swelling_2d(**overrides):
     return benchmarks.swelling(2, overrides=overrides, device="cpu")
 
 
-@pytest.mark.parametrize(
-    "what,attempt",
-    [
-        # outer cg is ported (ROADMAP M7.3): this case now drives the
-        # --inner-monitor flag through the swelling driver's parser
-        ("monitors.*M7\\.6",
-         lambda: swelling.setup(["-N", "2", "--inner-monitor", "--device", "cpu"])
-         .create_solver()),
-        # the solver cache and export are ported (ROADMAP M7.5): see the body
-        ("cache", None),
-        ("export", None),
-        ("monitors.*M7\\.6", lambda: _swelling_2d(**{"inner monitor": True}).create_solver()),
-    ],
-    ids=["outer_cg", "cache", "export", "inner_monitor"],
-)
-def test_other_unported_features_raise(what, attempt, tmp_path, monkeypatch):
-    """Each unported feature raises naming its ROADMAP item.  The cache and
-    export cases run their ported features at swelling N=2: ``solver cache
-    path`` saves the solver, and a fresh problem restores it and takes the
-    same iterations to the same solution; ``output solutions`` writes
-    porotpu's XDMF time series (t0 and each step) into output/."""
+# a monitor line as porotpu prints it: its label and |r| to 5 digits
+MONITOR = re.compile(r"^  \[inner (\w+)\] \|r\|=\d\.\d{4}e[+-]\d\d$", re.M)
+
+
+@pytest.mark.parametrize("what", ["outer_cg", "cache", "export", "inner_monitor"])
+def test_other_unported_features_raise(what, tmp_path, monkeypatch, capfd):
+    """The features whose raises these cases checked are ported (ROADMAP
+    M7.5, M7.6); each case runs its feature at swelling N=2.  outer_cg:
+    ``--inner-monitor`` through the swelling driver's parser prints one
+    line for each inner solve of each PC apply (s, fp_f, fp_S); cache:
+    ``solver cache path`` saves the solver, and a fresh problem restores it
+    and takes the same iterations to the same solution; export: ``output
+    solutions`` writes porotpu's XDMF time series (t0 and each step) into
+    output/; inner_monitor: the parameter prints the lines."""
+    capfd.readouterr()
     if what == "cache":
         path = str(tmp_path / "swelling.pkl")
         p = _swelling_2d(**{"solver cache path": path})
@@ -325,8 +320,49 @@ def test_other_unported_features_raise(what, attempt, tmp_path, monkeypatch):
             u = f["step_000002/displacement"][...]
         np.testing.assert_array_equal(u, p.solution_fields()["displacement"])
         return
-    with pytest.raises(NotImplementedError, match=what):
-        attempt()
+    if what == "outer_cg":
+        p = swelling.setup(["-N", "2", "--inner-monitor", "--device", "cpu"])
+        assert p.parameters["inner monitor"] is True
+    else:
+        p = _swelling_2d(**{"inner monitor": True})
+    p.solve()
+    labels = MONITOR.findall(capfd.readouterr().out)
+    assert labels == ["s", "fp_f", "fp_S"] * p.iteration_log[0], labels
+
+
+# swelling N=2 with cg + Jacobi x 3 inner solves: every inner residual stays
+# far above rounding, so the two packages' values can be compared
+MONITORED = {"inner monitor": True, "inner ksp type": "cg", "inner pc type": "jacobi",
+             "inner iters": 3}
+
+
+def test_inner_monitor_lines_match_porotpu(monkeypatch, capfd):
+    """The port's inner-monitor lines against porotpu's (its
+    ``jax.debug.print``, which keeps the order of the applies here): the
+    same labels in the same order, and |r| within 1e-8 relative, both
+    printed to 17 digits for the comparison."""
+    import jax
+
+    from porotpu_torch.precond import inner
+
+    real = jax.debug.print
+    monkeypatch.setattr(jax.debug, "print",
+                        lambda fmt, **kw: real(fmt.replace(":.4e}", ":.17e}"), **kw))
+    monkeypatch.setattr(inner, "MONITOR_LINE", inner.MONITOR_LINE.replace(":.4e}", ":.17e}"))
+    line = re.compile(r"^  \[inner (\w+)\] \|r\|=(\S+)$", re.M)
+    capfd.readouterr()
+    jp = jbench.swelling(2, overrides=dict(MONITORED))
+    jp.solve()
+    jax.effects_barrier()
+    want = line.findall(capfd.readouterr().out)
+    p = benchmarks.swelling(2, overrides=dict(MONITORED), device="cpu")
+    p.solve()
+    got = line.findall(capfd.readouterr().out)
+    assert p.iteration_log == jp.iteration_log
+    assert [lab for lab, _ in got] == [lab for lab, _ in want]
+    assert [lab for lab, _ in want] == ["s", "fp_f", "fp_S"] * jp.iteration_log[0]
+    np.testing.assert_allclose([float(v) for _, v in got], [float(v) for _, v in want],
+                               rtol=1e-8, atol=0)
 
 
 def test_solution_fields_match_porotpu():

@@ -123,21 +123,25 @@ def test_chunk_must_be_a_multiple_of_restart():
     ],
     ids=["override1", "override3"],
 )
-def test_unported_branches_raise(override, what, tmp_path):
-    """override1: the solver cache is ported (ROADMAP M7.5), at swelling-3d
-    N=2 with the bench overrides in f64 it saves the solver and a fresh
-    problem restores it, the same iterations to the same solution;
-    override3: the inner monitors still raise."""
-    if what == "inner monitors":
-        p = swelling_3d(2, overrides=dict(F64, **override), device="cpu")
-        with pytest.raises(NotImplementedError, match=what + r".*ROADMAP M7\.\d"):
-            p.create_solver()
-        return
-    path = str(tmp_path / "bench.pkl")
-    p = swelling_3d(2, overrides=dict(F64, **{"solver cache path": path}), device="cpu")
+def test_unported_branches_raise(override, what, tmp_path, capfd):
+    """The two branches these cases checked the raises of are ported (ROADMAP
+    M7.5, M7.6), at swelling-3d N=2 with the bench overrides in f64: the
+    solver cache saves the solver and a fresh problem restores it, the same
+    iterations to the same solution; the inner monitors print one line for
+    each inner solve of each PC apply, porotpu's labels (the bench's
+    preonly AMG solves hold their block operator)."""
+    if what == "solver cache":
+        override = {"solver cache path": str(tmp_path / "bench.pkl")}
+    p = swelling_3d(2, overrides=dict(F64, **override), device="cpu")
+    capfd.readouterr()
     p.solve()
-    p.cache_writer.join(timeout=60)
-    q = swelling_3d(2, overrides=F64, device="cpu")
-    assert q.try_load_solver_cache(path)
-    q.solve()
-    assert q.iteration_log == p.iteration_log and torch.equal(q.sol, p.sol)
+    out = capfd.readouterr().out
+    if what == "solver cache":
+        p.cache_writer.join(timeout=60)
+        q = swelling_3d(2, overrides=F64, device="cpu")
+        assert q.try_load_solver_cache(override["solver cache path"])
+        q.solve()
+        assert q.iteration_log == p.iteration_log and torch.equal(q.sol, p.sol)
+    else:
+        labels = re.findall(r"^  \[inner (\w+)\] \|r\|=\S+$", out, re.M)
+        assert labels == ["s", "fp_f", "fp_S"] * p.iteration_log[0], labels
