@@ -128,6 +128,27 @@
    heaviest K1/K2 sets held against the plain version at 1e-12.  Then
    swelling N=6 aar and solid N=4 on the card and with ``--device cpu``:
    the same counts, solutions within 1e-10 relative.
+12. The solver cache, export and checkpoint/resume, and the inner
+   monitors, in a temporary directory (nothing lands in the checkout's
+   ``.cache/`` or ``output/``), each solve with the counts reset just
+   before and read just after (K1 launched, no plain product).
+   12a, the bench path: swelling-3d N=13 f32 through
+   ``tools/bench.build_problem`` with the cache there, first built and
+   saved, then restored into a fresh problem: 9 iterations each and
+   bench's guard; printed: setup s cold, the pickle's s on the setup's
+   thread and its write after, setup s cached, the file's MiB, and
+   max |x_cached - x_fresh|.  12b, export and resume on the driver path:
+   swelling N=80 petsc-options-inexact f64 (``--output``, VTU: the card's
+   machine has no h5py), the loop of ``AbstractPhysics.solve`` over two
+   steps with a checkpoint after step 1 (porotpu's 16 iterations); a
+   fresh problem loads the checkpoint and solves step 2: the straight
+   run's count, x within 1e-10 relative, the guard at both steps; the
+   VTU/PVD files parse.  12c, ``--inner-monitor``: swelling N=20 inexact
+   on the card and with ``--device cpu``, the same labels and lines, |r|
+   within 1e-8 relative or, for a block solved to rounding, both under
+   1e-10 of the run's largest |r| (at N=6 every block's AMG is one level,
+   a direct solve, and each |r| is rounding); then swelling N=80 inexact
+   with the monitors: 16 iterations, one s and one fp_f line an apply.
 
 Any failed check raises and the script exits non-zero.  It also exits
 non-zero without a CUDA device, and fails if jax or any module of porotpu
@@ -213,6 +234,12 @@ GREEDY_RTOL = 1e-8
 HELD_SETS = 4
 # phase 9: the drivers' defaults over three steps
 DEFAULTS_RUN = ["-N", "6", "--time-final", "0.3"]
+# phase 12: export and resume, and the inner monitors (card against CPU,
+# then at full size); porotpu's first-step count at N=80
+RESUME_RUN = ["-N", "80", "--petsc-options", "petsc-options-inexact", "--time-final", "0.2",
+              "--output"]
+MONITOR_CPU_RUN = ["-N", "20", "--petsc-options", "petsc-options-inexact", "--inner-monitor"]
+MONITOR_RUN = ["-N", "80", "--petsc-options", "petsc-options-inexact", "--inner-monitor"]
 
 
 def check(cond, msg):
@@ -778,6 +805,198 @@ def outer_phase(dev, torch, dia_kernel, ell_products, inner_iters, FieldwiseTest
         check(err <= 1e-10, f"{drv} {argv}: card and CPU solutions differ ({err:.2e})")
 
 
+def step_guard(label, problem, torch, FieldwiseTest):
+    """Check the true-residual field-wise guard of the problem's last step
+    at its own tolerances; returns (abs, rel)."""
+    b = problem.last_rhs
+    with torch.inference_mode():
+        fw = FieldwiseTest.from_sizes(problem.padded_sizes, b)
+        ea, er = (float(v) for v in fw.errors(b - problem.A_dev.matvec(problem.sol)))
+    atol = float(problem.parameters["solver atol"])
+    rtol = float(problem.parameters["solver rtol"])
+    check(ea < atol or er < rtol, f"{label}: true-residual guard failed ({ea:.3e}, {er:.3e})")
+    return ea, er
+
+
+def counted(label, dia_kernel, fn):
+    """Run ``fn`` with the dispatch counts reset just before and read just
+    after; checks that K1 launched and no plain product ran."""
+    dia_kernel.reset_counts()
+    out = fn()
+    counts = dict(dia_kernel.COUNTS)
+    check(counts["dia_mv"] > 0, f"{label}: K1 was never launched")
+    check(counts["plain"] == 0, f"{label}: {counts['plain']} banded products took a plain version")
+    return out, counts
+
+
+def bench_cache_phase(dev, torch, dia_kernel, bench, tmp, smi):
+    """12a: the bench path's solver cache, built and saved, then restored."""
+    import numpy as np
+
+    print("-- 12a: the bench path's solver cache (swelling-3d N=13 f32, "
+          "porotpu_torch/tools/bench.build_problem)", flush=True)
+    cdir = os.path.join(tmp, "cache")
+    t0 = time.perf_counter()
+    cold = bench.build_problem("float32", device=dev, cache_dir=cdir)
+    t_cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cold.cache_writer.join()
+    t_write = time.perf_counter() - t0
+    path = cold.parameters["solver cache path"]
+    check(os.path.basename(path).startswith("torch_bench_") and os.path.exists(path),
+          f"no cache file {path}")
+    mib = os.path.getsize(path) / 2**20
+    t0 = time.perf_counter()
+    warm = bench.build_problem("float32", device=dev, cache_dir=cdir)
+    t_cached = time.perf_counter() - t0
+    check(warm.cache_writer is None and not warm.first_timestep,
+          "the second build_problem did not restore the cache")
+    xs = {}
+    for label, prob in (("fresh", cold), ("restored", warm)):
+        its, counts = counted(f"12a {label}", dia_kernel, prob.solve)
+        ea, er = bench.guard(prob, prob.last_rhs, prob.sol)
+        print(f"{label}: iterations {its}, guard abs {ea:.3e} rel {er:.3e}; counts "
+              + ", ".join(f"{k}={v}" for k, v in counts.items()), flush=True)
+        check(its == [9], f"12a {label}: {its} iterations, BENCH_r05 took 9")
+        check(ea < bench.GUARD_ATOL or er < bench.GUARD_RTOL, f"12a {label}: guard failed")
+        check(counts["dia_rmv"] == 0, f"12a {label}: K2 ran on the f32 path")
+        xs[label] = prob.sol.cpu().numpy()
+    diff = np.abs(xs["restored"] - xs["fresh"]).max()
+    print(f"bench cache [{smi}]: setup cold {t_cold:.2f} s (host setup {cold.t_setup:.2f} s, "
+          f"of it the pickle {cold.t_cache_save:.2f} s on the setup's thread), the write "
+          f"{t_write:.2f} s after it; setup cached {t_cached:.2f} s (restore {warm.t_setup:.2f} "
+          f"s); {mib:.1f} MiB; max |x_cached - x_fresh| {diff:.3e}", flush=True)
+    check(np.isfinite(xs["restored"]).all(), "12a: non-finite restored solution")
+
+
+def parse_vtk(path):
+    """The root of a VTU or PVD file (xml.etree)."""
+    import xml.etree.ElementTree as ET
+
+    return ET.parse(path).getroot()
+
+
+def resume_phase(dev, torch, dia_kernel, FieldwiseTest, tmp):
+    """12b: export (VTU) and checkpoint/resume on the driver path."""
+    import numpy as np
+
+    from porotpu_torch.drivers import swelling
+    from porotpu_torch.utils import io
+
+    print(f"-- 12b: export and resume: python -m porotpu_torch.drivers.swelling "
+          f"{' '.join(RESUME_RUN)} (VTU), a checkpoint after step 1", flush=True)
+    cwd = os.getcwd()
+    os.chdir(tmp)  # output/ lands in the temporary directory
+    try:
+        p = swelling.setup(_argv(RESUME_RUN))
+        check(p.output_solutions and p.device.type == "cuda", "12b: no export, or not on the card")
+        p.parameters["output format"] = "vtu"
+        t0 = time.perf_counter()
+        p.create_solver()
+        p.first_timestep = False
+        t_setup = time.perf_counter() - t0
+        ckpt = os.path.join(tmp, "step1.npz")
+        # AbstractPhysics.solve's loop, a checkpoint between the steps
+        p.export(p.t0)
+        steps = []
+        for step in (1, 2):
+            p.t += p.dt
+            its, counts = counted(f"12b step {step}", dia_kernel, lambda: p.solve_time_step(p.t))
+            ea, er = step_guard(f"12b step {step}", p, torch, FieldwiseTest)
+            p.export(p.t)
+            steps.append((its, counts, ea, er))
+            if step == 1:
+                io.save_checkpoint(ckpt, p, p.t)
+        x_straight = p.sol.cpu().numpy()
+        mesh_nv = p.mesh.num_vertices
+        del p
+        gc.collect()
+        q = swelling.setup(_argv(RESUME_RUN))
+        t = io.load_checkpoint(ckpt, q)
+        check(q.us_nm1.device.type == "cuda" and q.us_nm1.dtype == torch.float64,
+              "12b: the checkpoint did not load onto the card in f64")
+        q.create_solver()
+        q.first_timestep = False
+        q.t = t + q.dt
+        its_r, counts_r = counted("12b resumed step 2", dia_kernel,
+                                  lambda: q.solve_time_step(q.t))
+        ea_r, er_r = step_guard("12b resumed step 2", q, torch, FieldwiseTest)
+        x_r = q.sol.cpu().numpy()
+        err = np.abs(x_r - x_straight).max() / np.abs(x_straight).max()
+        for step, (its, counts, ea, er) in enumerate(steps, 1):
+            print(f"step {step}: {its} iterations, guard abs {ea:.3e} rel {er:.3e}; counts "
+                  + ", ".join(f"{k}={v}" for k, v in counts.items()))
+        print(f"resumed step 2: {its_r} iterations, guard abs {ea_r:.3e} rel {er_r:.3e}; "
+              f"max rel diff of x from the straight run {err:.2e}; host setup {t_setup:.2f} s; "
+              "counts " + ", ".join(f"{k}={v}" for k, v in counts_r.items()), flush=True)
+        check(steps[0][0] == 16, f"12b: step 1 took {steps[0][0]} iterations, porotpu's 16")
+        check(its_r == steps[1][0], f"12b: resumed step 2 took {its_r}, straight {steps[1][0]}")
+        check(err <= 1e-10, f"12b: resumed x differs from the straight run ({err:.2e})")
+        pvd = parse_vtk(os.path.join("output", "swelling.pvd"))
+        frames = [d.get("file") for d in pvd.iter("DataSet")]
+        check(frames == [f"swelling_{i:06d}.vtu" for i in range(3)], f"12b: PVD lists {frames}")
+        for f in frames:
+            piece = next(parse_vtk(os.path.join("output", f)).iter("Piece"))
+            names = [a.get("Name") for a in piece.iter("DataArray") if a.get("Name")]
+            check(int(piece.get("NumberOfPoints")) == mesh_nv
+                  and {"displacement", "fluid_velocity", "pressure"} <= set(names),
+                  f"12b: {f} holds {piece.get('NumberOfPoints')} points, arrays {names}")
+        print(f"VTU/PVD: {len(frames)} frames of {mesh_nv} points parsed, "
+              f"{sum(os.path.getsize(os.path.join('output', f)) for f in frames) / 2**20:.1f} MiB",
+              flush=True)
+    finally:
+        os.chdir(cwd)
+
+
+def monitor_lines(text):
+    """(label, |r|) of each inner-monitor line."""
+    import re
+
+    return [(lab, float(r)) for lab, r in
+            re.findall(r"^  \[inner (\w+)\] \|r\|=(\S+)$", text, re.M)]
+
+
+def monitor_phase(dev, torch, dia_kernel):
+    """12c: --inner-monitor, card against CPU, then at full size."""
+    from porotpu_torch.drivers import swelling
+
+    from io import StringIO
+
+    def run(argv, where):
+        tee = Tee(sys.stdout if where == "cuda" else StringIO())
+        with contextlib.redirect_stdout(tee):
+            p = swelling.setup(_argv(argv) + ["--device", where])
+            if where == "cuda":
+                p.create_solver()
+                p.first_timestep = False
+                its, counts = counted(f"12c {' '.join(argv)}", dia_kernel, p.solve)
+            else:
+                its, counts = p.solve(), None
+        return its, monitor_lines("".join(tee.text)), counts
+
+    print(f"-- 12c: inner monitors, swelling {' '.join(MONITOR_CPU_RUN)} card against CPU",
+          flush=True)
+    its_c, card, _ = run(MONITOR_CPU_RUN, "cuda")
+    its_h, host, _ = run(MONITOR_CPU_RUN, "cpu")
+    check(its_c == its_h, f"12c: iterations {its_c} on the card, {its_h} on the CPU")
+    check([lab for lab, _ in card] == [lab for lab, _ in host] and card,
+          "12c: the card's monitor labels differ from the CPU's")
+    floor = 1e-10 * max(r for _, r in host)
+    worst = max(abs(a - b) / b if b > floor else 0.0 for (_, a), (_, b) in zip(card, host))
+    check(all(abs(a - b) <= 1e-8 * b or max(a, b) <= floor for (_, a), (_, b) in zip(card, host)),
+          "12c: the card's |r| differ from the CPU's")
+    print(f"card = CPU: {len(card)} lines, labels {sorted(set(lab for lab, _ in card))}, "
+          f"worst relative difference above the floor {worst:.2e} (floor {floor:.2e})",
+          flush=True)
+    print(f"-- 12c: swelling {' '.join(MONITOR_RUN)} on the card", flush=True)
+    its, lines, counts = run(MONITOR_RUN, "cuda")
+    print(f"{its} iterations, {len(lines)} monitor lines; counts "
+          + ", ".join(f"{k}={v}" for k, v in counts.items()), flush=True)
+    check(its == [16], f"12c: {its} iterations with the monitors on, porotpu's 16")
+    check([lab for lab, _ in lines] == ["s", "fp_f"] * its[0],
+          "12c: not one s and one fp_f line an apply")
+
+
 def main():
     import numpy as np
     import torch
@@ -1110,6 +1329,18 @@ def main():
     outer_phase(dev, torch, dia_kernel, ELL_PRODUCTS, inner_iters, FieldwiseTest, mb, peaks, rng,
                 mismatches)
     check(not mismatches, "; ".join(mismatches))
+
+    # -- 12. the solver cache, export and resume, inner monitors --------------
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        bench_cache_phase(dev, torch, dia_kernel, bench, tmp, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        resume_phase(dev, torch, dia_kernel, FieldwiseTest, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        monitor_phase(dev, torch, dia_kernel)
     check_imports()
 
     k1, k2, k3 = record["dia_mv", "L0_A", "f32"], record["dia_rmv", "L0_P", "f64"], mbrec["k3"]
