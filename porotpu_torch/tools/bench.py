@@ -40,8 +40,8 @@ import torch
 
 from ..models.abstract import log
 from ..models.benchmarks import BENCH_OVERRIDES, swelling_3d
-from ..utils import cache
 from ..solvers.convergence import FieldwiseTest
+from ..utils import cache
 from ..utils.roofline import op_stream_time, padded_values, stream_peak
 from .dia_microbench import HBM_BYTES_PER_S
 
@@ -83,14 +83,6 @@ def build_problem(dtype="float32", N=13, pc_dtype=None, device="cuda", cache_dir
         problem.first_timestep = False
         log(f"setup: {time.perf_counter() - t0:.1f}s, dofs={problem.W.num_dofs}")
     return problem
-
-
-def _ready(problem):
-    """The problem with its solver built; the first step's right-hand side."""
-    if problem.first_timestep:
-        problem.create_solver()
-        problem.first_timestep = False
-    return problem.get_rhs(problem.t0 + problem.dt)
 
 
 def guard(problem, b, x):
@@ -209,8 +201,7 @@ def run_bench_ir(p32, p64):
     side alone are used.  Raises when the refinement misses the f64
     tolerances; returns the record."""
     _require_card()
-    _ready(p32)
-    b64 = _ready(p64)
+    b64 = p64.get_rhs(p64.t0 + p64.dt)
     _, first = refine(p32, p64.A_dev, b64, p64.padded_sizes)
     if not (first["abs"] <= IR_ATOL or first["rel"] <= IR_RTOL):
         raise RuntimeError(f"IR did not reach the f64 tolerance: {first}")
