@@ -15,9 +15,15 @@ import torch
 
 
 def estimate_spectrum(A, n, iters=20, M=None, key=None, dtype=torch.float32,
-                      device="cpu"):
+                      device="cuda"):
     """Estimate lambda_max of (M^-1 A) by power iteration (setup): the norm
-    of the last iterate, as a float.  ``key`` seeds the start vector."""
+    of the last iterate, as a float.  ``key`` seeds the start vector.  It
+    runs on the card and raises without one, unless ``device="cpu"``."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "estimate_spectrum: torch sees no CUDA card; pass device='cpu' to run on the host"
+        )
     if M is None:
         M = lambda r: r  # noqa: E731
     gen = torch.Generator().manual_seed(0 if key is None else int(key))

@@ -219,8 +219,11 @@ def test_basic_solvers_and_spectrum_match_porotpu():
     (jA, _, _), (tA, _, _) = _sides(np.diag(np.r_[10.0, np.linspace(0.1, 1.0, 59)]),
                                     np.ones(60), np.ones(60))
     want = J.estimate_spectrum(jA, 60, iters=30, dtype=jnp.float64)
-    got = T.estimate_spectrum(tA, 60, iters=30, dtype=torch.float64)
+    got = T.estimate_spectrum(tA, 60, iters=30, dtype=torch.float64, device="cpu")
     assert abs(got - 10.0) <= 1e-12 * 10 and abs(got - want) <= 1e-12 * 10
+    if not torch.cuda.is_available():  # the card by default, as every entry point
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            T.estimate_spectrum(tA, 60, iters=30, dtype=torch.float64)
 
 
 # -- the model --------------------------------------------------------------
