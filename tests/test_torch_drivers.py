@@ -278,6 +278,16 @@ def test_driver_module_runs_without_jax():
     assert "Solved time t=0.10." in got["stdout"] and "Timing Solver" in got["stdout"]
 
 
+def test_robustness_runner_runs_without_jax():
+    """One cell of the robustness runner (swelling 2-way exact at N=2, the
+    code its child process runs) with jax unimportable, in the same
+    subprocess: the 8 iterations the exact options take at N=2, on the
+    plain versions."""
+    got = import_checks()["robustness"]
+    assert got["foreign"] == ["jax"], got["foreign"]
+    assert got["iterations"] == 8 and got["plain"] > 0, got
+
+
 def _swelling_2d(**overrides):
     return benchmarks.swelling(2, overrides=overrides, device="cpu")
 

@@ -168,8 +168,9 @@ def one_blas_thread():
 # of porotpu_torch: swelling-3d N=2 in f64 with jax importable, then with
 # jax unimportable; with jax still unimportable, that problem built with a
 # solver cache path and restored from its file into a fresh problem; then
-# the swelling driver as a module at N=2.  Each records the modules of jax
-# and porotpu loaded by then.
+# the swelling driver as a module at N=2; then one cell of the robustness
+# runner (its child's code) at N=2.  Each records the modules of jax and
+# porotpu loaded by then.
 _IMPORT_CHECK = """
 import contextlib, io, json, runpy, sys, tempfile
 
@@ -205,6 +206,14 @@ text = io.StringIO()
 with contextlib.redirect_stdout(text):
     runpy.run_module('porotpu_torch.drivers.swelling', run_name='__main__')
 out['driver'] = dict(stdout=text.getvalue(), foreign=foreign())
+fresh()
+from porotpu_torch.tools import robustness
+with tempfile.TemporaryDirectory() as d:
+    with contextlib.redirect_stdout(io.StringIO()):
+        robustness.run_cell(robustness.GRID[0]._replace(N=2), 'cpu', '', d + '/cell.json')
+    with open(d + '/cell.json') as fh:
+        rec = json.load(fh)
+out['robustness'] = dict(iterations=rec['iterations'], plain=rec['plain'], foreign=foreign())
 print('IMPORT_CHECK ' + json.dumps(out))
 """
 
@@ -213,7 +222,8 @@ print('IMPORT_CHECK ' + json.dumps(out))
 def import_checks():
     """{"jax_importable" | "jax_blocked": {converged, iterations, foreign},
     "cache_restore": {restored, iterations, fresh_iterations, foreign},
-    "driver": {stdout, foreign}} from one subprocess (see _IMPORT_CHECK)."""
+    "driver": {stdout, foreign}, "robustness": {iterations, plain, foreign}} from
+    one subprocess (see _IMPORT_CHECK)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env.pop("PORO_PLATFORM", None)
