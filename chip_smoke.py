@@ -149,6 +149,17 @@
    1e-10 of the run's largest |r| (at N=6 every block's AMG is one level,
    a direct solve, and each |r| is rounding); then swelling N=80 inexact
    with the monitors: 16 iterations, one s and one fp_f line an apply.
+13. The robustness grid's runner (``porotpu_torch/tools/robustness.py``,
+   ``run`` and ``summarize``, the code of ``python -m
+   porotpu_torch.tools.robustness``) into a temporary ``output/torch``:
+   swelling 2-way inexact N=160 (438,085 dofs, the grid's largest
+   swelling cell; its 25,921-row Schur block is past the dense-LU cap and
+   falls back to cg+amg), in the runner's child process with the counts
+   reset just before its solve and read just after.  It must give
+   porotpu's 17 iterations, converge, meet the true-residual field-wise
+   guard, launch K1 and K2 and take no plain product; a failed cell fails
+   the script.  Printed: dofs, setup and solve s, peak device memory,
+   then ``--summarize`` of what ran, against porotpu's logs.
 
 Any failed check raises and the script exits non-zero.  It also exits
 non-zero without a CUDA device, and fails if jax or any module of porotpu
@@ -240,6 +251,9 @@ RESUME_RUN = ["-N", "80", "--petsc-options", "petsc-options-inexact", "--time-fi
               "--output"]
 MONITOR_CPU_RUN = ["-N", "20", "--petsc-options", "petsc-options-inexact", "--inner-monitor"]
 MONITOR_RUN = ["-N", "80", "--petsc-options", "petsc-options-inexact", "--inner-monitor"]
+# phase 13: cells of the robustness grid, their dofs and porotpu's count
+# (output/robustness-2d-*.out, output/SUMMARY.md)
+GRID_CELLS = (("swelling-2way-inexact-160", 438085, 17),)
 
 
 def check(cond, msg):
@@ -997,6 +1011,36 @@ def monitor_phase(dev, torch, dia_kernel):
           "12c: not one s and one fp_f line an apply")
 
 
+def grid_phase(tmp):
+    """13: cells of the robustness grid through the runner, each in its
+    child process, into ``tmp``; then its table against porotpu's."""
+    from porotpu_torch.tools import robustness
+
+    names = [name for name, _, _ in GRID_CELLS]
+    outdir = os.path.join(tmp, "output", "torch")
+    print(f"-- 13: the robustness grid's runner: python -m porotpu_torch.tools.robustness "
+          f"{' '.join(names)} --outdir {outdir} --cache-dir=", flush=True)
+    failed = robustness.run(robustness.select(names), outdir, "cuda", cache_dir="")
+    check(not failed, f"13: cells failed: {failed}")
+    recs = {r["cell"]: r for r in robustness.records(outdir)}
+    for name, dofs, oracle in GRID_CELLS:
+        r = recs[name]
+        print(f"{name}: dofs {r['dofs']}, {r['iterations']} iterations (porotpu {oracle}), "
+              f"converged {r['converged']}, guard abs {r['guard_abs']:.3e} rel "
+              f"{r['guard_rel']:.3e}; setup {r['setup_s']:.2f} s, solve {r['solve_s']:.2f} s, "
+              f"peak {r['peak_mib']:.1f} MiB; K1 {r['K1']}, K2 {r['K2']}, plain {r['plain']}, "
+              f"ELL {r['ell_products']}; {r['card']}, {r['power_limit']}", flush=True)
+        check(r["device"].startswith("cuda"), f"13 {name}: ran on {r['device']}")
+        check(r["dofs"] == dofs, f"13 {name}: dofs {r['dofs']} != {dofs}")
+        check(r["iterations"] == oracle and r["converged"],
+              f"13 {name}: {r['iterations']} iterations (converged {r['converged']}), "
+              f"porotpu took {oracle}")
+        check(r["guard_met"], f"13 {name}: true-residual guard failed")
+        check(r["K1"] > 0 and r["K2"] > 0, f"13 {name}: K1 {r['K1']}, K2 {r['K2']} launches")
+        check(r["plain"] == 0, f"13 {name}: {r['plain']} banded products took a plain version")
+    print(robustness.summarize(outdir, os.path.join(ROOT, "output")), flush=True)
+
+
 def main():
     import numpy as np
     import torch
@@ -1341,6 +1385,11 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         monitor_phase(dev, torch, dia_kernel)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- 13. the robustness grid's runner ---------------------------------
+        grid_phase(tmp)
     check_imports()
 
     k1, k2, k3 = record["dia_mv", "L0_A", "f32"], record["dia_rmv", "L0_P", "f64"], mbrec["k3"]
