@@ -12,12 +12,14 @@ from porotpu_torch.models import benchmarks
 from porotpu_torch.utils.parser import Parser
 
 
-def setup(argv=None):
-    """The problem the command line asks for, built but not solved."""
+def setup(argv=None, overrides=None):
+    """The problem the command line asks for, built but not solved;
+    ``overrides`` updates the driver's parameters before the flags do."""
     parser = Parser(argv)
     N = parser.options.N or 10
     refinements = parser.options.refinements or 0
-    return benchmarks.swelling(N, refinements, parser=parser, device=parser.options.device)
+    return benchmarks.swelling(N, refinements, parser=parser, overrides=overrides,
+                           device=parser.options.device)
 
 
 def main(argv=None):

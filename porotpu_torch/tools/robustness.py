@@ -26,10 +26,10 @@ cpu`` runs the grid at N=2 on the CPU).
 
 Each cell runs in a child process, so that it starts with a fresh CUDA
 context and frees its memory when it ends: the port's driver
-(``porotpu_torch.drivers.swelling`` or ``footing``: its ``setup``, the
-solve and ``print_timings``, as its ``main``) with -N, --petsc-options,
---pc-type and --time-final 0.02, one step at t=0.10, as
-robustness_2d.sh:32-41 runs porotpu's.  Its output is printed as it
+(``porotpu_torch.drivers.swelling`` or ``footing``: its ``setup``, given
+the cell's overrides, the solve and ``print_timings``, as its ``main``)
+with -N, --petsc-options, --pc-type and --time-final 0.02, one step at
+t=0.10, as robustness_2d.sh:32-41 runs porotpu's.  Its output is printed as it
 comes and appended to ``<outdir>/robustness-2d-<case>.out`` under
 porotpu's header line, whole when the cell ends, so that runners started
 in parallel on other cells never interleave their lines; a child that
@@ -287,8 +287,7 @@ def run_cell(cell, device, cache_dir, record):
 
     drv = {"swelling": swelling, "footing": footing}[cell.driver]
     t0 = time.perf_counter()
-    problem = drv.setup(cell.argv(device))
-    problem.parameters.update(cell.overrides)
+    problem = drv.setup(cell.argv(device), cell.overrides)
     cuda = problem.device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(problem.device)

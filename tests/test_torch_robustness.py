@@ -69,13 +69,22 @@ def test_summarize_porotpu_logs_is_summary_md(capsys):
     assert got == want
 
 
+# a cell with an override and its tag, as tools/tpu_grid_cells.py's: 20
+# iterations stop footing 3-way qexact at N=2 short of the 30 it takes
+CAPPED = robustness.Cell("footing-3way-qexact", "footing", 2, "petsc-options-exact-iterative",
+                         "undrained 3-way", {"solver maxiter": 20}, "[maxiter 20]", "-maxiter20")
+
+
 @pytest.fixture(scope="module")
 def two_cells(tmp_path_factory):
-    """Two cells of the grid at N=2 on the CPU, each in its child process."""
+    """Two cells at N=2 on the CPU, each in its child process: one of the
+    grid and one with an override."""
     out = tmp_path_factory.mktemp("grid")
-    argv = ["swelling-2way-inexact-10", "footing-3way-qexact-10", "--ns", "2",
-            "--device", "cpu", "--outdir", str(out / "logs"), "--cache-dir", str(out / "cache")]
-    assert robustness.main(argv) == 0
+    argv = ["swelling-2way-inexact-10", "*-maxiter20", "--ns", "2", "--device", "cpu",
+            "--outdir", str(out / "logs"), "--cache-dir", str(out / "cache")]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(robustness, "EXTRA_CELLS", robustness.EXTRA_CELLS + (CAPPED,))
+        assert robustness.main(argv) == 0
     return out, argv
 
 
@@ -88,30 +97,35 @@ def test_cells_write_logs_and_records(two_cells, capsys):
     out, _ = two_cells
     logs = out / "logs"
     assert robustness.read_logs(logs) == {
-        "footing-3way-qexact": {(2, ""): (30, True)},
+        "footing-3way-qexact": {(2, "[maxiter 20]"): (20, False)},
         "swelling-2way-inexact": {(2, ""): (9, True)},
     }
     log = _lines(logs / "robustness-2d-swelling-2way-inexact.out")
     assert log[:2] == ["", "swelling.py pc='diagonal' N=2 opts=petsc-options-inexact"]
     assert any(ln.startswith("-------- Solved time t=0.10. 9 iterations") for ln in log)
+    log = _lines(logs / "robustness-2d-footing-3way-qexact.out")
+    assert log[1] == ("footing.py pc='undrained 3-way' N=2 opts=petsc-options-exact-iterative "
+                      "[maxiter 20]")
     recs = [json.loads(ln) for ln in _lines(logs / "cells.jsonl")]
-    assert [(r["cell"], r["iterations"], r["rc"]) for r in recs] == [
-        ("footing-3way-qexact-2", 30, 0), ("swelling-2way-inexact-2", 9, 0)]
+    assert [(r["cell"], r["iterations"], r["converged"], r["rc"]) for r in recs] == [
+        ("swelling-2way-inexact-2", 9, True, 0), ("footing-3way-qexact-2-maxiter20", 20, False, 0)]
+    assert recs[0]["guard_met"]
     for r in recs:
-        assert r["dofs"] == 109 and r["converged"] and r["guard_met"]
-        assert r["K1"] == 0 and r["plain"] > 0 and r["card"] is None
+        assert r["dofs"] == 109 and r["K1"] == 0 and r["plain"] > 0 and r["card"] is None
         assert r["peak_mib"] is None and r["setup_s"] > 0 and r["solve_s"] > 0
     assert sorted(os.listdir(out / "cache")) == [
-        "torch_grid_footing-3way-qexact-2.pkl", "torch_grid_swelling-2way-inexact-2.pkl"]
+        "torch_grid_footing-3way-qexact-2-maxiter20.pkl", "torch_grid_swelling-2way-inexact-2.pkl"]
     robustness.main(["--summarize", "--outdir", str(logs), "--reference", OUTPUT])
     table = capsys.readouterr().out
     assert "| swelling-2way-inexact | 9 port-only | — (9) |" in table
-    assert "| footing-3way-qexact-2 | 109 | 30 (port-only) |" in table
+    assert "| footing-3way-qexact | —; 20* [maxiter 20] | — (194) |" in table
+    assert "| footing-3way-qexact-2-maxiter20 | 109 | 20* (port-only) |" in table
 
 
-def test_rerun_skips_cells_done(two_cells, capsys):
+def test_rerun_skips_cells_done(two_cells, capsys, monkeypatch):
     out, argv = two_cells
     logs = out / "logs"
+    monkeypatch.setattr(robustness, "EXTRA_CELLS", robustness.EXTRA_CELLS + (CAPPED,))
     before = {p: _lines(logs / p) for p in os.listdir(logs)}
     assert robustness.main(argv) == 0
     assert {p: _lines(logs / p) for p in os.listdir(logs)} == before
