@@ -19,7 +19,7 @@ def setup(argv=None, overrides=None):
     N = parser.options.N or 10
     refinements = parser.options.refinements or 0
     return benchmarks.footing(N, refinements, parser=parser, overrides=overrides,
-                           device=parser.options.device)
+                              device=parser.options.device)
 
 
 def main(argv=None):
