@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from .ops.dia import DIA, Dense, Transposed
-from .ops.sparse import ELL, FieldMatrix
+from .ops.sparse import ELL, FieldMatrix, ell_transpose
 from .precond.amg import AMG, AMGLevel
 from .precond.block import BlockPreconditioner, CastPC
 from .precond.inner import InnerSolver
@@ -57,7 +57,12 @@ def to_torch(obj, _memo=None):
     elif name == "Dense":
         out = Dense(_tensor(obj.data))
     elif name == "ELL":
-        out = ELL(_tensor(obj.data), _tensor(obj.cols, torch.int64), obj.ncols)
+        # the port's ELL transposes through a stored transposed layout
+        dT, colsT = ell_transpose(np.asarray(obj.data, dtype=np.float64), np.asarray(obj.cols),
+                                  obj.ncols)
+        data = _tensor(obj.data)
+        out = ELL(data, _tensor(obj.cols, torch.int64), obj.ncols,
+                  torch.as_tensor(dT, dtype=data.dtype), torch.from_numpy(colsT))
     elif name == "FieldMatrix":
         out = FieldMatrix({k: conv(v) for k, v in obj.blocks.items()}, obj.sizes)
     elif name == "AMG":

@@ -264,6 +264,8 @@ def device_matrix(
         candidates.append((n * m, 2, lambda: Dense.from_csr(A, dtype)))
     counts = np.diff(A.indptr)
     L = max(int(counts.max()) if n else 1, 1)
-    candidates.append((50 * n * L, 3, lambda: ELL.from_csr(A, dtype)))
+    candidates.append(
+        (50 * n * L, 3, lambda: ELL.from_csr(A, dtype, store_transpose=need_rmatvec))
+    )
     candidates.sort(key=lambda t: (t[0], t[1]))
     return candidates[0][2]()

@@ -2,7 +2,11 @@
 
 ELL is the last-resort format of ``device_matrix`` (unbanded blocks); its
 product is a plain torch gather, as porotpu computes it outside Pallas.
-``ELL_PRODUCTS`` counts those products by (product, dtype, rows, width).
+The transpose product is the same gather on a stored transposed ELL
+(``store_transpose``, built on the host): a scatter-add (``index_add_``)
+sums in an order that changes from run to run on the card, and made two
+runs of one solve differ in the last bits.  ``ELL_PRODUCTS`` counts the
+products by (product, dtype, rows, width).
 """
 
 from __future__ import annotations
@@ -18,13 +22,45 @@ from torch import nn
 ELL_PRODUCTS = collections.Counter()
 
 
-class ELL(nn.Module):
-    """Padded-row (ELLPACK) sparse matrix: data (n, L), cols (n, L)."""
+def _ell_arrays(A: sp.csr_matrix):
+    """(data f64, cols int64) of the padded rows of a CSR matrix; a row's pad
+    slots repeat its own first column with a zero value (the gather stays
+    local)."""
+    n = A.shape[0]
+    counts = np.diff(A.indptr)
+    L = max(int(counts.max()) if n else 1, 1)
+    data = np.zeros((n, L), dtype=np.float64)
+    cols = np.zeros((n, L), dtype=np.int64)
+    rows = np.repeat(np.arange(n), counts)
+    pos = np.arange(A.nnz) - np.repeat(A.indptr[:-1], counts)
+    data[rows, pos] = A.data
+    cols[rows, pos] = A.indices
+    pad = np.arange(L)[None, :] >= counts[:, None]
+    return data, np.where(pad, cols[:, 0:1], cols)
 
-    def __init__(self, data, cols, ncols):
+
+def ell_transpose(data: np.ndarray, cols: np.ndarray, ncols: int):
+    """(dataT f64, colsT int64): the ELL arrays of A^T for the ELL arrays of A."""
+    n, L = data.shape
+    A = sp.csr_matrix(
+        (data.ravel(), (np.repeat(np.arange(n), L), cols.ravel())), shape=(n, ncols)
+    )
+    A.sum_duplicates()
+    A.eliminate_zeros()
+    return _ell_arrays(A.T.tocsr())
+
+
+class ELL(nn.Module):
+    """Padded-row (ELLPACK) sparse matrix: data (n, L), cols (n, L); with
+    the transposed layout, dataT (ncols, LT) and colsT (ncols, LT) hold the
+    ELL of A^T, each row's entries in increasing row order of A."""
+
+    def __init__(self, data, cols, ncols, dataT=None, colsT=None):
         super().__init__()
         self.register_buffer("data", data)
         self.register_buffer("cols", cols)
+        self.register_buffer("dataT", dataT)
+        self.register_buffer("colsT", colsT)
         self.ncols = int(ncols)
 
     @property
@@ -32,23 +68,17 @@ class ELL(nn.Module):
         return (self.data.shape[0], self.ncols)
 
     @classmethod
-    def from_csr(cls, A: sp.spmatrix, dtype=torch.float32) -> "ELL":
+    def from_csr(cls, A: sp.spmatrix, dtype=torch.float32, store_transpose=False) -> "ELL":
         A = A.tocsr()
         A.sum_duplicates()
         A.eliminate_zeros()
-        n, m = A.shape
-        counts = np.diff(A.indptr)
-        L = max(int(counts.max()) if n else 1, 1)
-        data = np.zeros((n, L), dtype=np.float64)
-        cols = np.zeros((n, L), dtype=np.int64)
-        rows = np.repeat(np.arange(n), counts)
-        pos = np.arange(A.nnz) - np.repeat(A.indptr[:-1], counts)
-        data[rows, pos] = A.data
-        cols[rows, pos] = A.indices
-        # pad columns with each row's own first column (the gather stays local)
-        pad = np.arange(L)[None, :] >= counts[:, None]
-        cols = np.where(pad, cols[:, 0:1], cols)
-        return cls(torch.as_tensor(data, dtype=dtype), torch.from_numpy(cols), m)
+        data, cols = _ell_arrays(A)
+        dataT = colsT = None
+        if store_transpose:
+            dT, colsT = _ell_arrays(A.T.tocsr())
+            dataT, colsT = torch.as_tensor(dT, dtype=dtype), torch.from_numpy(colsT)
+        return cls(torch.as_tensor(data, dtype=dtype), torch.from_numpy(cols), A.shape[1],
+                   dataT, colsT)
 
     def _count(self, product):
         n, L = self.data.shape
@@ -61,9 +91,17 @@ class ELL(nn.Module):
     forward = matvec
 
     def rmatvec(self, x):
+        """A^T x: the gather on the stored transposed layout, summed in a
+        fixed order."""
+        if self.dataT is None:
+            # built once, on the host, for a matrix made without it (the
+            # prolongators that restrict are made with it)
+            dT, colsT = ell_transpose(self.data.detach().cpu().double().numpy(),
+                                      self.cols.cpu().numpy(), self.ncols)
+            self.dataT = torch.as_tensor(dT, dtype=self.data.dtype).to(self.data.device)
+            self.colsT = torch.from_numpy(colsT).to(self.data.device)
         self._count("rmatvec")
-        out = x.new_zeros(self.ncols)
-        return out.index_add_(0, self.cols.reshape(-1), (self.data * x[:, None]).reshape(-1))
+        return (self.dataT * x[self.colsT]).sum(1)
 
     def to_dense(self) -> np.ndarray:
         n, L = self.data.shape
