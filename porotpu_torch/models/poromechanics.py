@@ -20,6 +20,15 @@ chunk``, ``print_timings``, the solver cache (``solver cache path``:
 the host-built state pickled before it moves to the device, restored by
 ``try_load_solver_cache``), the inner monitors (``inner monitor``) and
 the export of ``solution_fields``.
+
+On a row mesh (``create_solver(mesh)``, ``parallel.solver_mesh``) each
+rank builds the same host setup, keeps its field slabs of every operator
+and vector, and runs FGMRES with reductions over the ranks
+(porotpu/parallel/sharding.py).  The right-hand side is built whole on
+each rank and sliced; ``unpadded_solution`` and ``solution_fields``
+gather.  ``pad multiple`` must be a multiple of the world size.  The
+solver types aar and cg, ``inner accel order`` and the quasi-exact
+``fgmres+fs`` fp solve raise NotImplementedError on a mesh (ROADMAP M9.2).
 """
 
 from __future__ import annotations
@@ -139,6 +148,7 @@ class Poromechanics(AbstractPhysics):
         self.p_nm1 = zeros(self.np_p)
         self.sol = zeros(self.n_pad)
 
+        self.row_mesh = None  # the row mesh of a sharded solve
         self.first_timestep = True
         self.bcs = []
         self.bcs_diff = []
@@ -287,10 +297,14 @@ class Poromechanics(AbstractPhysics):
         return B * mask[:, None]
 
     # ------------------------------------------------------------------
-    def create_solver(self):
+    def create_solver(self, mesh=None):
         """Build the operators and the block PC on the host, save them to
         ``solver cache path`` when it is set, then move the whole solver
-        state to ``self.device`` (porotpu/models/poromechanics.py:397-433)."""
+        state to ``self.device`` (porotpu/models/poromechanics.py:397-433).
+        With a row ``mesh`` (kept in ``row_mesh`` for later steps) the state
+        is sharded first and moves to the rank's device."""
+        if mesh is not None:
+            self.row_mesh = mesh
         t0 = _time.perf_counter()
         self._build_operators()
         cpath = self.parameters.get("solver cache path")
@@ -300,12 +314,44 @@ class Poromechanics(AbstractPhysics):
             t1 = _time.perf_counter()
             self.cache_writer = self.save_solver_cache(cpath)
             self.t_cache_save = _time.perf_counter() - t1
+        self._shard()
         self._to_device()
         self._finalize_solver()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.t_setup = _time.perf_counter() - t0
         log("---- [Solver] Solver created in {}s".format(self.t_setup))
+
+    @property
+    def local_sizes(self):
+        """The rank's field sizes: the padded sizes, divided by the world
+        size on a mesh."""
+        if self.row_mesh is None:
+            return self.padded_sizes
+        return tuple(self.row_mesh.slab_len(n, "padded field size") for n in self.padded_sizes)
+
+    def _shard(self):
+        """Keep this rank's slabs of the host-built solver state (no mesh:
+        nothing), and the history vectors at the local sizes on the rank's
+        device."""
+        mesh = self.row_mesh
+        if mesh is None:
+            return
+        from ..parallel import sharding
+
+        memo = {}
+        self.A_dev = sharding.shard_operator(self.A_dev, mesh, memo)
+        pc = self.pc
+        self.pc = sharding.shard_operator(pc, mesh, memo)
+        if self.H_dev is not None:
+            self.H_dev = sharding.shard_operator(self.H_dev, mesh, memo)
+        keep, self.bc_dofs = sharding.local_index(mesh, self.padded_sizes, self.bc_dofs)
+        self.bc_vals = self.bc_vals[keep]
+        self.device = mesh.device
+        ns, nf, npp = self.local_sizes
+        z = lambda n: torch.zeros(n, dtype=self.dtype, device=self.device)  # noqa: E731
+        self.us_nm1, self.us_nm2, self.uf_nm1, self.p_nm1 = z(ns), z(ns), z(nf), z(npp)
+        self.sol = z(ns + nf + npp)
 
     def _to_device(self):
         self.A_dev = self.A_dev.to(self.device)
@@ -358,6 +404,7 @@ class Poromechanics(AbstractPhysics):
             self._hist_terms = (
                 self.assembler.history_term_spec() if self.H_dev is not None else None
             )
+            self._shard()
             self._to_device()
             self._finalize_solver()
         except Exception as e:  # a stale or corrupt cache must never crash a run
@@ -631,6 +678,14 @@ class Poromechanics(AbstractPhysics):
             raise ValueError(
                 f"unknown solver type {solver_type!r}; types: aar, cg, gmres, fgmres"
             )
+        mesh = self.row_mesh
+        accel = int(p.get("inner accel order", 0))
+        if mesh is not None and (solver_type in ("aar", "cg") or accel > 0):
+            raise NotImplementedError(
+                f"solver type {solver_type} with inner accel order {accel} on a row mesh: "
+                "a sharded solve runs gmres/fgmres without Anderson acceleration; the rest "
+                "is ROADMAP M9.2"
+            )
         restart = int(p.get("gmres restart", min(50, maxiter)))
         # "solver chunk": ceil(maxiter/chunk) warm-started calls of a
         # chunk-maxiter solve — identical to one long gmres solve only when
@@ -646,9 +701,8 @@ class Poromechanics(AbstractPhysics):
             maxiter = chunk
         self._maxiter = maxiter
         use_fieldwise = bool(p.get("fieldwise convergence", True))
-        sizes = self.padded_sizes
+        sizes = self.local_sizes
         divtol = float(p.get("solver divtol", 1e20))
-        accel = int(p.get("inner accel order", 0))
 
         @torch.inference_mode()
         def _solve(b, x0):
@@ -669,7 +723,7 @@ class Poromechanics(AbstractPhysics):
                     divtol=divtol,
                     monitor=bool(p.get("solver monitor", False)),
                 )
-            fw = FieldwiseTest.from_sizes(sizes, b) if use_fieldwise else None
+            fw = FieldwiseTest.from_sizes(sizes, b, mesh) if use_fieldwise else None
             if solver_type == "cg":
                 return cg(
                     self.A_dev.matvec, b, x0=x0, M=self.pc, rtol=rtol, atol=atol,
@@ -691,6 +745,7 @@ class Poromechanics(AbstractPhysics):
                 fieldwise=fw,
                 divtol=divtol,
                 pc_accel_order=accel,
+                mesh=mesh,
             )
 
         self._solve = _solve
@@ -713,7 +768,12 @@ class Poromechanics(AbstractPhysics):
         loads = self.assembler.get_load_vector(t)
         b_np = np.zeros(self.n_pad)
         b_np[self.pad_index] = loads
-        b = torch.as_tensor(b_np, dtype=self.dtype).to(self.device)
+        b = torch.as_tensor(b_np, dtype=self.dtype)
+        if self.row_mesh is not None:
+            from ..parallel import sharding
+
+            b = sharding.shard_vector(b, self.row_mesh, self.padded_sizes)
+        b = b.to(self.device)
         if self.H_dev is not None:
             b = b + self._rhs_hist()
         b[self.bc_dofs] = self.bc_vals
@@ -739,7 +799,7 @@ class Poromechanics(AbstractPhysics):
 
         self.sol = res.x
         self.pc_applies += total_its
-        ns_p, nf_p, _ = self.padded_sizes
+        ns_p, nf_p, _ = self.local_sizes
         self.us_nm2 = self.us_nm1
         self.us_nm1 = res.x[:ns_p]
         self.uf_nm1 = res.x[ns_p : ns_p + nf_p]
@@ -769,9 +829,10 @@ class Poromechanics(AbstractPhysics):
         vs = self.W.space("s").vert_node
         vf = self.W.space("f").vert_node
         vp = self.W.space("p").vert_node
-        us = self.us_nm1.cpu().numpy()[: self.ns].reshape(-1, dim)[vs]
-        uf = self.uf_nm1.cpu().numpy()[: self.nf].reshape(-1, dim)[vf]
-        p = self.p_nm1.cpu().numpy()[: self.npp][vp]
+        whole = (lambda v: v) if self.row_mesh is None else self.row_mesh.all_gather  # noqa: E731
+        us = whole(self.us_nm1).cpu().numpy()[: self.ns].reshape(-1, dim)[vs]
+        uf = whole(self.uf_nm1).cpu().numpy()[: self.nf].reshape(-1, dim)[vf]
+        p = whole(self.p_nm1).cpu().numpy()[: self.npp][vp]
         return {
             "displacement": us,
             "fluid velocity": uf,
@@ -779,8 +840,14 @@ class Poromechanics(AbstractPhysics):
         }
 
     def unpadded_solution(self):
-        """Solution vector in the original (unpadded) dof numbering."""
-        return self.sol.cpu().numpy()[self.pad_index]
+        """Solution vector in the original (unpadded) dof numbering; on a
+        mesh gathered from the ranks' slabs."""
+        sol = self.sol
+        if self.row_mesh is not None:
+            from ..parallel import sharding
+
+            sol = sharding.gather_vector(sol, self.row_mesh, self.local_sizes)
+        return sol.cpu().numpy()[self.pad_index]
 
     # ------------------------------------------------------------------
     def _stage_seconds(self, fn, v, reps):

@@ -14,10 +14,39 @@ Rectangular cross-space blocks are handled by a column embedding
 ``col_emb``: the input is scattered into the row lattice (size ``ne``)
 once, then the banded sweep runs unchanged.
 
-The sharded (halo / gspmd) paths of porotpu are not ported here.
+On a row mesh (``parallel/sharding.py``) an operator holds the slab of
+its rows and its ``dist`` tag says how a product communicates
+(porotpu/ops/dia.py:326-510):
+
+- ``None``: no mesh, the code above; ``("repl",)``: every rank holds the
+  whole operator (AMG levels >= 1) and runs it as without a mesh;
+- ``("halo", mesh)``: the embedded space is the row space and the halo,
+  ``hl = max(0, -min off)`` left and ``hr = max(off, 0)`` right, fits one
+  slab.  The matvec receives ``hl`` entries from the left neighbour and
+  ``hr`` from the right one in one exchange and makes one K1 launch on
+  the window ``[from_left | x_loc | from_right]``, offsets shifted by
+  ``+hl``; the transpose makes one K2 launch over the window of
+  ``hl + nloc + hr`` columns, then sends its two overflows to the
+  neighbours and adds theirs in.  Embedded blocks (``col_emb``) read a
+  replicated input (an all-gathered field, or an AMG coarse vector): the
+  matvec scatters the window's range of it, the transpose takes the
+  window's range of its output at ``emb`` and sums it over the ranks, so
+  neither exchanges halos;
+- ``("gather", mesh)``, porotpu's ``("gspmd",)``: the slab is narrower
+  than the halo or the embedded space is not the row space.  The input
+  is all-gathered and K1 or K2 run on the slab with offsets shifted by
+  ``rank * nloc``; a transpose sums its output over the ranks.
+
+``col_slab`` says whether the column space (the matvec's input, the
+transpose's output) is a field in slabs or replicated.  A rank's local
+compute is a plain function of (slab, window, shift): ``halo_matvec_local``,
+``halo_rmatvec_local`` and ``halo_fold``.  ``Dense`` and ELL take
+``("gather", mesh)``.
 """
 
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 import scipy.sparse as sp
@@ -47,13 +76,55 @@ def transpose_layout(data: torch.Tensor, offsets, ne: int) -> torch.Tensor:
     return dataT
 
 
+# Products on a row mesh by (dist kind, product, embedded): a halo block
+# that is not embedded makes one exchange a direction with a halo
+MESH_PRODUCTS = collections.Counter()
+
+
+def halo_matvec_local(data, shift, shift_dev, window):
+    """One rank's halo matvec: K1 on the window of its slab's input, the
+    offsets shifted by the window's left halo."""
+    return dia_kernel.mv(data, shift, shift_dev, window, data.shape[1])
+
+
+def halo_rmatvec_local(data, shift, shift_dev, x, hl, hr):
+    """One rank's halo transpose before the fold: K2 over the window of
+    ``hl + nloc + hr`` columns, the offsets shifted by ``hl``."""
+    return dia_kernel.rmv(data, shift, shift_dev, x, hl + data.shape[1] + hr)
+
+
+def halo_fold(acc, hl, hr, from_left, from_right):
+    """The rank's slab of a halo transpose: the window's middle, plus the
+    left neighbour's right overflow on its first ``hr`` entries and the
+    right neighbour's left overflow on its last ``hl``."""
+    nloc = acc.shape[0] - hl - hr
+    y = acc[hl : hl + nloc].clone()
+    if hr:
+        y[:hr] += from_left
+    if hl:
+        y[nloc - hl :] += from_right
+    return y
+
+
+def _window_scatter(emb: torch.Tensor, lo: int, width: int):
+    """(src, dst): the columns whose embedded slot lies in [lo, lo + width),
+    and that slot in the window."""
+    hit = (emb >= lo) & (emb < lo + width)
+    src = torch.nonzero(hit).flatten()
+    return src, emb[src] - lo
+
+
 class DIA(nn.Module):
     """Banded matrix with static diagonal offsets.
 
     data: (nd, nrows) buffer, data[d, i] = A[i, j] where emb(j) = i + offsets[d]
     col_emb: optional (ncols,) int64 buffer embedding columns into row space
     dataT: optional (nd, ne) transposed layout, dataT[d, i + offsets[d]] = data[d, i]
+    On a mesh data holds the rank's slab (nd, nloc) and nrows stays global.
     """
+
+    dist = None  # None, ("repl",), ("halo", mesh) or ("gather", mesh)
+    col_slab = True  # on a mesh: the column space is a field in slabs
 
     def __init__(self, data, offsets, nrows, ncols, col_emb=None, ne=None, dataT=None):
         super().__init__()
@@ -76,6 +147,27 @@ class DIA(nn.Module):
     @property
     def shape(self):
         return (self.nrows, self.ncols)
+
+    def set_dist(self, kind: str, mesh, col_slab: bool):
+        """Tag a slab ``("halo", mesh)`` or ``("gather", mesh)`` and build the
+        shifted offsets (and, for an embedded halo block, the window's
+        scatter) of this rank."""
+        nloc = self.data.shape[1]
+        self.dist = (kind, mesh)
+        self.col_slab = bool(col_slab)
+        if kind == "halo":
+            self.halo = (max(0, -min(self.offsets)), max(0, max(self.offsets)))
+            shift = self.halo[0]
+        else:
+            shift = mesh.rank * nloc
+        self.shift = tuple(o + shift for o in self.offsets)
+        self.register_buffer("shift_dev", torch.tensor(self.shift, dtype=torch.int32))
+        if kind == "halo" and self.col_emb is not None:
+            hl, hr = self.halo
+            src, dst = _window_scatter(self.col_emb, mesh.rank * nloc - hl, hl + nloc + hr)
+            self.register_buffer("win_src", src)
+            self.register_buffer("win_dst", dst)
+        return self
 
     # -- construction -------------------------------------------------------
 
@@ -119,6 +211,8 @@ class DIA(nn.Module):
     # -- products -------------------------------------------------------
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dist is not None and self.dist[0] != "repl":
+            return self._mesh_matvec(x)
         if self.col_emb is not None:
             xe = x.new_zeros(self.ne)
             xe[self.col_emb] = x
@@ -131,6 +225,8 @@ class DIA(nn.Module):
     def rmatvec(self, x: torch.Tensor) -> torch.Tensor:
         """A^T x: K1 on (dataT, -offsets) when the transposed layout is
         stored, otherwise K2 on (data, offsets)."""
+        if self.dist is not None and self.dist[0] != "repl":
+            return self._mesh_rmatvec(x)
         if self.dataT is not None:
             y = dia_kernel.mv(
                 self.dataT,
@@ -144,6 +240,46 @@ class DIA(nn.Module):
         if self.col_emb is not None:
             return y[self.col_emb]
         return y[: self.ncols]
+
+    def _mesh_matvec(self, x):
+        kind, mesh = self.dist
+        nloc = self.data.shape[1]
+        MESH_PRODUCTS[kind, "matvec", self.col_emb is not None] += 1
+        if kind == "halo" and self.col_emb is None:
+            hl, hr = self.halo
+            from_left, from_right = mesh.exchange(x[:hr], x[nloc - hl :])
+            return halo_matvec_local(self.data, self.shift, self.shift_dev,
+                                     torch.cat([from_left, x, from_right]))
+        xs = mesh.all_gather(x) if self.col_slab else x
+        if kind == "halo":
+            hl, hr = self.halo
+            window = xs.new_zeros(hl + nloc + hr)
+            window[self.win_dst] = xs[self.win_src]
+            return halo_matvec_local(self.data, self.shift, self.shift_dev, window)
+        if self.col_emb is not None:
+            xe = xs.new_zeros(self.ne)
+            xe[self.col_emb] = xs
+        else:
+            xe = xs
+        return dia_kernel.mv(self.data, self.shift, self.shift_dev, xe, nloc)
+
+    def _mesh_rmatvec(self, x):
+        kind, mesh = self.dist
+        MESH_PRODUCTS[kind, "rmatvec", self.col_emb is not None] += 1
+        if kind == "halo":
+            hl, hr = self.halo
+            acc = halo_rmatvec_local(self.data, self.shift, self.shift_dev, x, hl, hr)
+            if self.col_emb is None:
+                nloc = self.data.shape[1]
+                from_left, from_right = mesh.exchange(acc[:hl], acc[hl + nloc :])
+                return halo_fold(acc, hl, hr, from_left, from_right)
+            y = acc.new_zeros(self.ncols)
+            y[self.win_src] = acc[self.win_dst]
+        else:
+            acc = dia_kernel.rmv(self.data, self.shift, self.shift_dev, x, self.ne)
+            y = acc[self.col_emb] if self.col_emb is not None else acc[: self.ncols]
+        y = mesh.allreduce_sum(y)
+        return mesh.slab(y) if self.col_slab else y
 
     def to_dense(self) -> np.ndarray:
         ne = self.ne
@@ -172,6 +308,10 @@ class Transposed(nn.Module):
         s = self.inner.shape
         return (s[1], s[0])
 
+    @property
+    def dist(self):
+        return self.inner.dist
+
     def matvec(self, x):
         return self.inner.rmatvec(x)
 
@@ -185,11 +325,21 @@ class Transposed(nn.Module):
 
 
 class Dense(nn.Module):
-    """Small dense matrix; its product is a plain torch.matmul."""
+    """Small dense matrix; its product is a plain torch.matmul.  On a mesh
+    it holds its rows' slab, gathers a field input and sums its transpose
+    over the ranks."""
+
+    dist = None  # None, ("repl",) or ("gather", mesh)
+    col_slab = True
 
     def __init__(self, data):
         super().__init__()
         self.register_buffer("data", data)
+
+    def set_dist(self, mesh, col_slab: bool):
+        self.dist = ("gather", mesh)
+        self.col_slab = bool(col_slab)
+        return self
 
     @classmethod
     def from_csr(cls, A: sp.spmatrix, dtype=torch.float32):
@@ -197,15 +347,25 @@ class Dense(nn.Module):
 
     @property
     def shape(self):
-        return tuple(self.data.shape)
+        n, m = self.data.shape
+        if self.dist is not None and self.dist[0] == "gather":
+            n *= self.dist[1].world
+        return (n, m)
 
     def matvec(self, x):
+        if self.dist is not None and self.dist[0] == "gather" and self.col_slab:
+            x = self.dist[1].all_gather(x)
         return self.data @ x
 
     forward = matvec
 
     def rmatvec(self, x):
-        return x @ self.data
+        y = x @ self.data
+        if self.dist is not None and self.dist[0] == "gather":
+            mesh = self.dist[1]
+            y = mesh.allreduce_sum(y)
+            return mesh.slab(y) if self.col_slab else y
+        return y
 
     def to_dense(self):
         return self.data.detach().cpu().double().numpy()

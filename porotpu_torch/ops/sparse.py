@@ -55,6 +55,9 @@ class ELL(nn.Module):
     the transposed layout, dataT (ncols, LT) and colsT (ncols, LT) hold the
     ELL of A^T, each row's entries in increasing row order of A."""
 
+    dist = None  # None, ("repl",) or ("gather", mesh): rows in slabs, columns global
+    col_slab = True
+
     def __init__(self, data, cols, ncols, dataT=None, colsT=None):
         super().__init__()
         self.register_buffer("data", data)
@@ -65,7 +68,17 @@ class ELL(nn.Module):
 
     @property
     def shape(self):
-        return (self.data.shape[0], self.ncols)
+        n = self.data.shape[0]
+        if self.dist is not None and self.dist[0] == "gather":
+            n *= self.dist[1].world
+        return (n, self.ncols)
+
+    def set_dist(self, mesh, col_slab: bool):
+        """Tag a slab of rows: the matvec gathers a field input, the
+        transpose sums over the ranks."""
+        self.dist = ("gather", mesh)
+        self.col_slab = bool(col_slab)
+        return self
 
     @classmethod
     def from_csr(cls, A: sp.spmatrix, dtype=torch.float32, store_transpose=False) -> "ELL":
@@ -86,6 +99,8 @@ class ELL(nn.Module):
 
     def matvec(self, x):
         self._count("matvec")
+        if self.dist is not None and self.dist[0] == "gather" and self.col_slab:
+            x = self.dist[1].all_gather(x)
         return (self.data * x[self.cols]).sum(1)
 
     forward = matvec
@@ -101,7 +116,12 @@ class ELL(nn.Module):
             self.dataT = torch.as_tensor(dT, dtype=self.data.dtype).to(self.data.device)
             self.colsT = torch.from_numpy(colsT).to(self.data.device)
         self._count("rmatvec")
-        return (self.dataT * x[self.colsT]).sum(1)
+        y = (self.dataT * x[self.colsT]).sum(1)
+        if self.dist is not None and self.dist[0] == "gather":
+            mesh = self.dist[1]
+            y = mesh.allreduce_sum(y)
+            return mesh.slab(y) if self.col_slab else y
+        return y
 
     def to_dense(self) -> np.ndarray:
         n, L = self.data.shape

@@ -226,7 +226,12 @@ class AMGLevel(nn.Module):
 
 class AMG(nn.Module):
     """V-cycle preconditioner: x = AMG(b).  The coarsest level is a dense
-    matvec with the explicit inverse (computed in f64 on the host)."""
+    matvec with the explicit inverse (computed in f64 on the host).  On a
+    row mesh (``parallel.shard_amg``) level 0 holds the rank's slabs and
+    every rank runs the replicated levels below it whole; a hierarchy
+    with no level gathers its field for the replicated inverse."""
+
+    mesh = None
 
     def __init__(self, levels, coarse_inv, presmooth=1, postsmooth=1, cheb_lower=4.0):
         super().__init__()
@@ -277,6 +282,8 @@ class AMG(nn.Module):
         return self._smooth(lvl, b, x, self.postsmooth)
 
     def forward(self, b):
+        if self.mesh is not None and not self.levels:
+            return self.mesh.slab(self.coarse_inv @ self.mesh.all_gather(b))
         return self._cycle(0, b)
 
 

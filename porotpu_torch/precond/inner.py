@@ -12,6 +12,11 @@ fieldsplit, until rtol 1e-12 or its iteration count).  Every banded
 product goes through ``ops.dia`` (K1, or K2 for a transpose, on the
 card).
 
+On a row mesh (``parallel.sharding``) ``mesh`` and ``fields`` (the
+block's local field sizes) are set: the CG kinds reduce their dot
+products over the ranks, and ``lu`` gathers its input field by field for
+the replicated inverse and keeps its slabs of the product.
+
 ``remap_inner_iters`` applies ``inner iters`` to a restored solver
 cache's PC; ``set_inner_monitor`` turns on the per-field inner monitors
 (reference lib/Preconditioner.py:94-100): after each apply of a solver
@@ -93,6 +98,9 @@ class InnerSolver(nn.Module):
     ``label`` (porotpu/precond/inner.py:127-134).
     """
 
+    mesh = None  # the row mesh, when sharded
+    fields = None  # the block's local field sizes, when sharded
+
     def __init__(self, kind, payload=None, iters=0, lmax=1.0, cheb_frac=30.0,
                  monitor=False, label=""):
         super().__init__()
@@ -118,7 +126,9 @@ class InnerSolver(nn.Module):
     def forward(self, b):
         x = self._solve(b)
         if self.monitor and "A" in self.mods:
-            r = torch.linalg.vector_norm(b - self.mods["A"].matvec(x)).item()
+            res = b - self.mods["A"].matvec(x)
+            r = (torch.linalg.vector_norm(res) if self.mesh is None
+                 else self.mesh.norm(res)).item()
             print(MONITOR_LINE.format(label=self.label or self.kind, r=r), flush=True)
         return x
 
@@ -130,6 +140,8 @@ class InnerSolver(nn.Module):
             return self.dinv * b
         if k == "lu":
             # porotpu computes this product outside any Pallas kernel too
+            if self.mesh is not None:
+                return self._sharded_lu(b)
             return torch.mv(self.inv, b)
         if k == "chebyshev":
             return chebyshev(
@@ -137,9 +149,11 @@ class InnerSolver(nn.Module):
                 iters=self.iters, M=self._jacobi,
             )
         if k == "cg":
-            return cg_fixed(self.mods["A"].matvec, b, M=self._jacobi, iters=self.iters)
+            return cg_fixed(self.mods["A"].matvec, b, M=self._jacobi, iters=self.iters,
+                            mesh=self.mesh)
         if k == "cg+amg":
-            return cg_fixed(self.mods["A"].matvec, b, M=self.mods["amg"], iters=self.iters)
+            return cg_fixed(self.mods["A"].matvec, b, M=self.mods["amg"], iters=self.iters,
+                            mesh=self.mesh)
         if k == "amg":
             amg = self.mods["amg"]
             x = amg(b)
@@ -157,6 +171,20 @@ class InnerSolver(nn.Module):
             return res.x
         # plus-diag: y = S_md^-1 b + w_visc diag^-1 b (precond/schur.py dcc)
         return self.mods["base"](b) + self.wdiag * b
+
+    def _sharded_lu(self, b):
+        """The replicated inverse on the whole block: each field gathered,
+        the product's slabs kept."""
+        mesh, parts, off = self.mesh, [], 0
+        for n in self.fields:
+            parts.append(mesh.all_gather(b[off : off + n]))
+            off += n
+        y = torch.mv(self.inv, torch.cat(parts))
+        out, off = [], 0
+        for n in self.fields:
+            out.append(mesh.slab(y[off : off + n * mesh.world]))
+            off += n * mesh.world
+        return torch.cat(out)
 
 
 # the block PC's inner solves and their monitor labels, the reference's

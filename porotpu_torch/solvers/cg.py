@@ -13,7 +13,8 @@ static count of CG steps and no convergence test, so the loop never
 reads a value back from the device.
 
 The zero guards on p.Ap and r.z are ``torch.where``s on device scalars,
-as porotpu's ``jnp.where``s.
+as porotpu's ``jnp.where``s.  With ``mesh`` (a row mesh, vectors in
+slabs) each dot product and norm is one all-reduce over the ranks.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ def cg(
     maxiter=100,
     fieldwise: FieldwiseTest | None = None,
     divtol=1e20,
+    mesh=None,
 ):
     """Solve A x = b with preconditioned CG.
 
@@ -47,8 +49,10 @@ def cg(
         x0 = torch.zeros_like(b)
     if M is None:
         M = lambda r: r  # noqa: E731
+    dot = torch.dot if mesh is None else mesh.dot
+    norm = torch.linalg.norm if mesh is None else mesh.norm
     one = torch.ones((), dtype=b.dtype, device=b.device)
-    tol2 = torch.clamp_min(rtol * torch.linalg.norm(b), atol)
+    tol2 = torch.clamp_min(rtol * norm(b), atol)
 
     def res_ok(r):
         """(converged, residual) of r, as one host read."""
@@ -56,7 +60,7 @@ def cg(
             ea, er = fieldwise.errors(r)
             done, rn = (ea < atol) | (er < rtol), torch.clamp_min(ea, 0.0)
         else:
-            rn = torch.linalg.norm(r)
+            rn = norm(r)
             done = rn <= tol2
         done_h, rn_h = torch.stack([done.to(rn.dtype), rn]).tolist()
         return bool(done_h), rn_h
@@ -66,19 +70,19 @@ def cg(
     r = b - A(x0)
     z = M(r)
     p = z
-    rz = torch.dot(r, z)
+    rz = dot(r, z)
     done, rn = res_ok(r)
     history[0] = rn
     div = rn > divtol
     k = 0
     while not done and not div and k < maxiter:
         Ap = A(p)
-        pAp = torch.dot(p, Ap)
+        pAp = dot(p, Ap)
         alpha = rz / torch.where(pAp != 0, pAp, one)
         x = x + alpha * p
         r = r - alpha * Ap
         z = M(r)
-        rz_new = torch.dot(r, z)
+        rz_new = dot(r, z)
         beta = rz_new / torch.where(rz != 0, rz, one)
         p = z + beta * p
         rz = rz_new
@@ -89,7 +93,7 @@ def cg(
     return SolveResult(x, k, rn, done, history, div)
 
 
-def cg_fixed(A, b, x0=None, M=None, iters: int = 10):
+def cg_fixed(A, b, x0=None, M=None, iters: int = 10, mesh=None):
     """``iters`` steps of preconditioned CG on A x = b from x0 (zeros).
 
     A, M: callables tensor -> tensor.  Two shortcuts leave x unchanged:
@@ -105,14 +109,15 @@ def cg_fixed(A, b, x0=None, M=None, iters: int = 10):
         x, r = x0, b - A(x0)
     if iters <= 0:
         return x
+    dot = torch.dot if mesh is None else mesh.dot
     z = M(r)
     p = z
-    rz = torch.dot(r, z)
+    rz = dot(r, z)
     one = torch.ones((), dtype=b.dtype, device=b.device)
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
     for k in range(iters):
         Ap = A(p)
-        pAp = torch.dot(p, Ap)
+        pAp = dot(p, Ap)
         safe = pAp.abs() > 0
         alpha = torch.where(safe, rz / torch.where(safe, pAp, one), zero)
         x = x + alpha * p
@@ -120,7 +125,7 @@ def cg_fixed(A, b, x0=None, M=None, iters: int = 10):
             break
         r = r - alpha * Ap
         z = M(r)
-        rz_new = torch.dot(r, z)
+        rz_new = dot(r, z)
         nz = rz != 0
         beta = torch.where(nz, rz_new / torch.where(nz, rz, one), zero)
         p = z + beta * p

@@ -15,10 +15,13 @@ import torch
 
 
 def estimate_spectrum(A, n, iters=20, M=None, key=None, dtype=torch.float32,
-                      device="cuda"):
+                      device="cuda", mesh=None):
     """Estimate lambda_max of (M^-1 A) by power iteration (setup): the norm
     of the last iterate, as a float.  ``key`` seeds the start vector.  It
-    runs on the card and raises without one, unless ``device="cpu"``."""
+    runs on the card and raises without one, unless ``device="cpu"``.
+    With ``mesh`` (vectors in slabs of a single field of ``n`` rows) each
+    rank starts from its slab of the same vector and the norms are
+    reduced over the ranks."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -26,13 +29,15 @@ def estimate_spectrum(A, n, iters=20, M=None, key=None, dtype=torch.float32,
         )
     if M is None:
         M = lambda r: r  # noqa: E731
+    norm = torch.linalg.norm if mesh is None else mesh.norm
     gen = torch.Generator().manual_seed(0 if key is None else int(key))
-    v = torch.randn(n, generator=gen, dtype=dtype).to(device)
-    v = v / torch.linalg.norm(v)
+    v = torch.randn(n, generator=gen, dtype=dtype)
+    v = (v if mesh is None else mesh.slab(v)).to(device)
+    v = v / norm(v)
     nw = torch.zeros((), dtype=dtype, device=device)
     for _ in range(iters):
         w = M(A(v))
-        nw = torch.linalg.norm(w)
+        nw = norm(w)
         v = w / torch.where(nw > 0, nw, torch.ones_like(nw))
     return float(nw)
 

@@ -15,6 +15,10 @@ Convergence is on the unpreconditioned residual 2-norm or, with
 residual, reconstructed lazily once the 2-norm bound admits convergence
 (porotpu/solvers/gmres.py:139-168).
 
+With ``mesh`` (a row mesh: b, x and the basis hold the rank's slabs)
+each norm is one all-reduce and each CGS2 pass one all-reduce of the
+local ``Vk @ w``; the Hessenberg problem is replicated on every rank.
+
 ``pc_accel_order`` Anderson-mixes the PC output of every iteration
 (the reference's "inner accel order", lib/Preconditioner.py:248-249)
 through one accelerator state that lives for the whole call and is
@@ -54,15 +58,20 @@ def _fieldwise_check(fw: FieldwiseTest, r, atol, rtol):
 
 
 def _gmres(A, b, x0, M, restart, rtol, atol, maxiter, flexible, fieldwise, divtol,
-           pc_accel_order):
+           pc_accel_order, mesh=None):
+    if mesh is not None and pc_accel_order > 0:
+        raise NotImplementedError("Anderson acceleration on a row mesh is ROADMAP M9.2")
+    norm = torch.linalg.norm if mesh is None else mesh.norm
+    reduce = (lambda t: t) if mesh is None else mesh.allreduce_sum  # noqa: E731
     if x0 is None:
         x0 = torch.zeros_like(b)
     if M is None:
         M = lambda r: r  # noqa: E731
     m = min(maxiter if restart is None else restart, maxiter)
     n = b.shape[0]
+    n_glob = n if mesh is None else n * mesh.world  # every rank holds equal slabs
     dt = _np_dtype(b.dtype)
-    bnorm = dt.type(torch.linalg.norm(b).item())
+    bnorm = dt.type(norm(b).item())
     tol = np.maximum(dt.type(atol), dt.type(rtol) * bnorm)
     history = np.full((maxiter + 1,), np.nan, dtype=np.float32)
     if fieldwise is not None:
@@ -70,14 +79,14 @@ def _gmres(A, b, x0, M, restart, rtol, atol, maxiter, flexible, fieldwise, divto
         # while |g[k+1]| >= sqrt(n) * fw_tol, so skip the reconstruction
         b0max = dt.type(torch.max(fieldwise.b0_norms).item())
         fw_tol = np.maximum(dt.type(atol), dt.type(rtol) * b0max)
-        fw_tol = fw_tol * np.sqrt(dt.type(n))
+        fw_tol = fw_tol * np.sqrt(dt.type(n_glob))
     acc = AndersonAccelerator(pc_accel_order) if pc_accel_order > 0 else None
     ast = acc.init(n, b.dtype, b.device) if acc else None
 
     def cycle(x0c, it0):
         nonlocal ast
         r0 = b - A(x0c)
-        beta_t = torch.linalg.norm(r0)
+        beta_t = norm(r0)
         if fieldwise is not None:
             done, res = _fieldwise_check(fieldwise, r0, atol, rtol)
             beta = dt.type(beta_t.item())
@@ -105,11 +114,11 @@ def _gmres(A, b, x0, M, restart, rtol, atol, maxiter, flexible, fieldwise, divto
             if flexible:
                 Z[k] = z
             Vk = V[: k + 1]
-            h1 = Vk @ w
+            h1 = reduce(Vk @ w)
             w = w - h1 @ Vk
-            h2 = Vk @ w
+            h2 = reduce(Vk @ w)
             w = w - h2 @ Vk
-            hk1_t = torch.linalg.norm(w)
+            hk1_t = norm(w)
             col = np.zeros((m + 1,), dtype=dt)
             col[: k + 2] = torch.cat([h1 + h2, hk1_t[None]]).cpu().numpy()
             hk1 = col[k + 1]
@@ -170,7 +179,7 @@ def _gmres(A, b, x0, M, restart, rtol, atol, maxiter, flexible, fieldwise, divto
     if fieldwise is not None:
         done, res = _fieldwise_check(fieldwise, r_init, atol, rtol)
     else:
-        res = float(torch.linalg.norm(r_init).item())
+        res = float(norm(r_init).item())
         done = bool(dt.type(res) <= tol)
     div = res > divtol
     x, it = x0, 0
@@ -191,6 +200,7 @@ def fgmres(
     fieldwise: FieldwiseTest | None = None,
     divtol=1e20,
     pc_accel_order: int = 0,
+    mesh=None,
 ):
     """Flexible GMRES, right-preconditioned (stores the Z directions).
 
@@ -201,7 +211,7 @@ def fgmres(
     one, so the residual trace is the same as without it.
     """
     return _gmres(A, b, x0, M, restart, rtol, atol, maxiter, True, fieldwise, divtol,
-                  pc_accel_order)
+                  pc_accel_order, mesh)
 
 
 def gmres(
@@ -216,6 +226,7 @@ def gmres(
     fieldwise: FieldwiseTest | None = None,
     divtol=1e20,
     pc_accel_order: int = 0,
+    mesh=None,
 ):
     """Right-preconditioned GMRES for a constant M: x = x0 + M(V y) per cycle.
 
@@ -226,4 +237,4 @@ def gmres(
     tests/test_ops_solvers.py::test_gmres_pc_accel_order).
     """
     return _gmres(A, b, x0, M, restart, rtol, atol, maxiter, False, fieldwise, divtol,
-                  pc_accel_order)
+                  pc_accel_order, mesh)

@@ -234,3 +234,247 @@ def import_checks():
     assert proc.returncode == 0, proc.stderr[-2000:]
     line = [ln for ln in proc.stdout.splitlines() if ln.startswith("IMPORT_CHECK ")][-1]
     return json.loads(line.removeprefix("IMPORT_CHECK "))
+
+
+# -- the row mesh: one gloo group of four ranks for tests/test_torch_parallel.py
+
+# the full solves the group runs, as benchmarks builder, N, overrides (pad
+# multiple 4 added), whether the outer blocks and couplings store ELL,
+# and the mesh sizes: porotpu's tests/test_parallel.py:66-92 cases, and
+# the 3-way one with ELL blocks (footing's ELL starts at N=10, and its
+# solves make thousands of collectives: too slow for a CPU test)
+PARALLEL_SOLVES = {
+    "swelling_diagonal_hypre": ("swelling", 6, {
+        "pc type": "diagonal", "inner pc type": "hypre", "solver rtol": 1e-8,
+        "solver atol": 1e-12}, False, (2, 4)),
+    "swelling_3way_lu": ("swelling", 4, {
+        "pc type": "diagonal 3-way", "inner pc type": "lu", "solver rtol": 1e-8,
+        "solver atol": 1e-12, "solver maxiter": 400}, False, (2, 4)),
+    "swelling_3way_lu_ell": ("swelling", 4, {
+        "pc type": "diagonal 3-way", "inner pc type": "lu", "solver rtol": 1e-8,
+        "solver atol": 1e-12, "solver maxiter": 400}, True, (2, 4)),
+}
+PARALLEL_WORLD = 4
+
+
+def parallel_problem(name, device="cpu", **more):
+    """The padded (pad multiple 4) problem of one PARALLEL_SOLVES case,
+    its parameters updated by ``more``."""
+    import porotpu_torch.models.poromechanics as pm
+    from porotpu_torch.models import benchmarks
+
+    builder, N, ov, ell, _ = PARALLEL_SOLVES[name]
+    ov = dict(ov, **{"pad multiple": PARALLEL_WORLD}, **more)
+    p = getattr(benchmarks, builder)(N, overrides=ov, device=device)
+    if ell:
+        build = p._build_operators
+
+        def build_ell():
+            dm = pm.device_matrix
+            pm.device_matrix = functools.partial(dm, max_diags=0, dense_max=0)
+            try:
+                build()
+            finally:
+                pm.device_matrix = dm
+
+        p._build_operators = build_ell
+    return p
+
+
+def _rel(got, want):
+    scale = float(want.abs().max())
+    return float((got - want).abs().max()) / (scale if scale > 0 else 1.0)
+
+
+@functools.cache
+def _host_build(name):
+    """A problem built on the host, once a rank for both mesh sizes."""
+    if name == "footing":
+        # the inexact options file: preonly AMG, one V-cycle a block
+        from porotpu_torch.drivers import footing
+
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        p = footing.setup(["-N", "4", "--petsc-options",
+                           os.path.join(repo, "petsc-options-inexact"), "--pc-type",
+                           "undrained", "--device", "cpu"],
+                          overrides={"pad multiple": PARALLEL_WORLD})
+    elif name == "swelling":
+        # a coarse size below the fields', so that each AMG has a sharded level 0
+        p = parallel_problem("swelling_diagonal_hypre", **{"amg coarse size": 100})
+    else:
+        p = parallel_problem(name)
+    p._build_operators()
+    return p
+
+
+def _rank_cases(mesh, rng):
+    """The checks of one mesh, a dict of results: a halo product's
+    exchanges, an outer cg and the full solves on every mesh; the
+    products and PC applies on the whole group."""
+    import time
+
+    import torch
+
+    from porotpu_torch.ops import dia
+    from porotpu_torch.ops.dia import DIA
+    from porotpu_torch.ops.sparse import ELL
+    from porotpu_torch.parallel import sharding
+    from porotpu_torch.precond.amg import AMG
+    from porotpu_torch.solvers.cg import cg
+
+    out = {"products": {}, "applies": {}, "solves": {}, "seconds": {}}
+    t0 = time.perf_counter()
+
+    def field_vec(sizes):
+        x = torch.from_numpy(rng.normal(size=sum(sizes)))
+        return x, sharding.shard_vector(x, mesh, sizes)
+
+    def hold_products(label, op):
+        sh = sharding.shard_ell(op, mesh)
+        n, m = op.shape
+        x, xl = field_vec((m,))
+        y, yl = field_vec((n,))
+        out["products"][label + "/matvec"] = _rel(sh.matvec(xl), mesh.slab(op.matvec(x)))
+        out["products"][label + "/rmatvec"] = _rel(sh.rmatvec(yl), mesh.slab(op.rmatvec(y)))
+
+    def hold_pc(label, p):
+        b, bl = field_vec(p.padded_sizes)
+        pc = sharding.shard_operator(p.pc, mesh)
+        out["applies"][label] = _rel(pc(bl), sharding.shard_vector(p.pc(b), mesh,
+                                                                   p.padded_sizes))
+
+    with torch.inference_mode():
+        p = _host_build("swelling")
+        A = p.A_dev
+        # exchanges of one square halo product, this rank's count
+        sh = sharding.shard_ell(A.block("s", "s"), mesh)
+        sharding.reset_collectives()
+        sh.matvec(field_vec((A.sizes["s"],))[1])
+        out["halo"] = {"dist": sh.dist[0], "exchanges": sum(
+            n for (op, _), n in sharding.COLLECTIVES.items() if op == "exchange")}
+        # outer cg on a symmetric banded operator, reduced over the ranks
+        S = banded_random(128, (-5, -2, 0, 2, 5), rng)
+        D = DIA.from_csr((S + S.T + 20 * sp.eye(128)).tocsr(), torch.float64)
+        b, bl = field_vec((128,))
+        res1 = cg(D.matvec, b, rtol=1e-10, maxiter=200)
+        res2 = cg(sharding.shard_ell(D, mesh).matvec, bl, rtol=1e-10, maxiter=200, mesh=mesh)
+        out["solves"]["outer cg"] = {
+            "iterations": res2.iters, "iterations_unsharded": res1.iters,
+            "converged": bool(res2.converged),
+            "x_rel": float(torch.linalg.norm(mesh.all_gather(res2.x) - res1.x)
+                           / torch.linalg.norm(res1.x))}
+
+        if mesh.world == PARALLEL_WORLD:
+            for r in A.sizes:
+                for c in A.sizes:
+                    if A.block(r, c) is not None:
+                        hold_products(f"swelling A {r}{c} {type(A.block(r, c)).__name__}",
+                                      A.block(r, c))
+            amg = p.pc.solve_s.mods["amg"]
+            assert len(amg.levels) >= 2
+            hold_products("swelling solid AMG L0 A", amg.levels[0].A)
+            for label, lvl0 in (("solid", amg.levels[0]),
+                                ("fluid", p.pc.solve_fp.solve_f.mods["amg"].levels[0])):
+                P = sharding.shard_ell(lvl0.P, mesh, False)
+                xc = torch.from_numpy(rng.normal(size=P.shape[1]))
+                r = torch.from_numpy(rng.normal(size=P.shape[0]))
+                name = f"swelling {label} AMG L0 P ({type(lvl0.P).__name__})"
+                out["products"][name + "/matvec"] = _rel(P.matvec(xc),
+                                                         mesh.slab(lvl0.P.matvec(xc)))
+                out["products"][name + "/rmatvec"] = _rel(P.rmatvec(mesh.slab(r)),
+                                                          lvl0.P.rmatvec(r))
+            hold_products("swelling Schur Apf", p.pc.solve_fp.Apf)
+            hold_pc("2-way block PC (AMG levels)", p)
+            bs, bsl = field_vec((p.padded_sizes[0],))
+            out["applies"]["solid AMG V-cycle"] = _rel(sharding.shard_amg(amg, mesh)(bsl),
+                                                       mesh.slab(amg(bs)))
+            M = torch.from_numpy(rng.normal(size=(40, 40)) + 40 * np.eye(40))
+            inv, v = torch.linalg.inv(M), torch.from_numpy(rng.normal(size=40))
+            out["applies"]["AMG of no level"] = _rel(
+                sharding.shard_amg(AMG([], inv), mesh)(mesh.slab(v)), mesh.slab(inv @ v))
+            hold_pc("3-way block PC (lu)", _host_build("swelling_3way_lu"))
+            # footing: wide bands (every banded block gathers at W=4) and its
+            # coupling blocks stored ELL
+            pf = _host_build("footing")
+            hold_pc("footing 2-way block PC", pf)
+            Ab = pf._bc_applied_blocks()[0]
+            for rc in (("f", "p"), ("p", "f"), ("s", "p")):
+                hold_products(f"footing {''.join(rc)} ELL",
+                              ELL.from_csr(Ab[rc], torch.float64, store_transpose=True))
+    out["seconds"]["products, applies, cg"] = time.perf_counter() - t0
+
+    sharding.reset_collectives()
+    dia.MESH_PRODUCTS.clear()
+    for name, (*_, worlds) in PARALLEL_SOLVES.items():
+        if mesh.world not in worlds:
+            continue
+        t0 = time.perf_counter()
+        q = parallel_problem(name)
+        q.create_solver(mesh)
+        q.first_timestep = False
+        b = q.get_rhs(q.t0 + q.parameters["dt"])
+        res = q._solve(b, torch.zeros_like(b))
+        q.sol = res.x
+        out["solves"][name] = {"iterations": res.iters, "converged": bool(res.converged),
+                               "x": q.unpadded_solution().tolist(),
+                               "ell": sum(type(m).__name__ == "ELL" for m in q.A_dev.modules())}
+        out["seconds"][name] = time.perf_counter() - t0
+    out["all_gather_max"] = max(
+        (n for (op, n) in sharding.COLLECTIVES if op == "all_gather"), default=0)
+    out["field_max"] = max(max(parallel_problem(n).padded_sizes) for n in PARALLEL_SOLVES)
+    out["mesh_products"] = sorted(f"{k}/{p}/{e}" for k, p, e in dia.MESH_PRODUCTS)
+    return out
+
+
+def parallel_rank(rank, init_method, out_path):
+    """One rank of the test group: the cases on the whole group (4 ranks)
+    and on its half (2 ranks), written as JSON to ``out_path``."""
+    import torch
+
+    torch.set_num_threads(1)
+    from porotpu_torch.parallel import solver_mesh, submeshes
+
+    mesh4 = solver_mesh(PARALLEL_WORLD, "cpu", rank=rank, init_method=init_method, timeout=60)
+    try:
+        mesh2 = submeshes(mesh4, 2)
+        out = {"rank": rank}
+        for mesh in (mesh2, mesh4):
+            # one seed on every rank: each slab is of the same whole vector
+            out[str(mesh.world)] = _rank_cases(mesh, np.random.default_rng(mesh.world))
+        out["foreign"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "porotpu"))
+    finally:
+        mesh4.close()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def start_parallel_group(tmp):
+    """Start the group's four ranks (a ``file://`` rendezvous in ``tmp``);
+    returns their processes and result paths."""
+    tests = os.path.dirname(os.path.abspath(__file__))
+    repo = os.path.dirname(tests)
+    env = dict(os.environ, OMP_NUM_THREADS="1", GLOO_SOCKET_IFNAME="lo")
+    init = "file://" + os.path.join(str(tmp), "rendezvous")
+    procs, paths = [], []
+    for r in range(PARALLEL_WORLD):
+        path = os.path.join(str(tmp), f"rank{r}.json")
+        code = (f"import sys; sys.path.insert(0, {tests!r}); from torch_k1_cases import "
+                f"parallel_rank; parallel_rank({r}, {init!r}, {path!r})")
+        procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=repo, env=env,
+                                      stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                                      text=True))
+        paths.append(path)
+    return procs, paths
+
+
+def join_parallel_group(procs, paths, timeout=300):
+    """The ranks' results, in rank order; raises with a rank's stderr when
+    it failed."""
+    errs = [p.communicate(timeout=timeout)[1] for p in procs]
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}: {errs[r][-3000:]}"
+    out = []
+    for path in paths:
+        with open(path) as f:
+            out.append(json.load(f))
+    return out
