@@ -93,8 +93,8 @@
    (7 iterations; the fp block is the ``fgmres+fs`` solve: 60 FGMRES
    iterations at most on the saddle fp operator, stopped at rtol 1e-12,
    preconditioned by the Schur fieldsplit with 20 cg+amg fluid
-   iterations and a dense-LU Schur part), footing N=20 2-way undrained
-   (27; no banded transpose, no K2) and swelling N=80
+   iterations and a dense-LU Schur part), footing N=10 2-way undrained
+   (25; two banded prolongators, K2 on their restrictions) and swelling N=80
    ``diagonal 3-way`` (6; every block cg+amg at 60 iterations).  Each run
    also prints its host syncs in the solve (``torch.cuda``'s sync debug
    mode, one warning a sync) and the inner FGMRES iterations of each fp
@@ -160,6 +160,25 @@
    guard, launch K1 and K2 and take no plain product; a failed cell fails
    the script.  Printed: dofs, setup and solve s, peak device memory,
    then ``--summarize`` of what ran, against porotpu's logs.
+14. The row-sharded solve (``porotpu_torch/tools/multichip.py``, the code
+   of ``python -m porotpu_torch.tools.multichip``): swelling N=40 with the
+   3-way block PC and cg+amg inner solves, rtol 1e-5, pad multiple the
+   world size W, one step (__graft_entry__.py's dryrun_multichip
+   problem), in f64 and in f32, (a) over NCCL at W=1 in this process (the
+   group made and destroyed around each run; the halos are empty), (b)
+   over gloo at W=2, two ranks spawned as child processes sharing the
+   one card (their messages pass through the host; the kernels, built in
+   phase 1, run on the card).  Each run resets the counts just before
+   its sharded solve and reads them just after; it must give the
+   unsharded port solve's count of the same padded problem, meet the
+   true-residual field-wise guard, launch K1 and K2 and no plain
+   product, and gather no vector longer than the largest padded field;
+   in f64 its x must lie within 1e-8 relative of the unsharded x, in f32
+   (where rounding alone moves x more) within twice the unsharded f32
+   x's distance from the f64 solution.  f32 K2 runs only on the sharded
+   path (a sharded operator holds no dataT).  At W=2 each halo product
+   makes 2 exchanges.  Printed: the collectives of a solve and the median
+   solve time sharded against unsharded.
 
 Any failed check raises and the script exits non-zero.  It also exits
 non-zero without a CUDA device, and fails if jax or any module of porotpu
@@ -206,13 +225,14 @@ DRIVER_RUNS = (
      31520, [248], True),
     # the quasi-exact protocol (paper-scripts/robustness_2d.sh's qexact
     # cells): the fp block is the fgmres+fs solve, the 3-way blocks cg+amg;
-    # footing's fp operator and prolongators store ELL, as in its 2-way
-    # inexact run
+    # footing's fp operator stores ELL, as in its 2-way inexact run, and at
+    # N=10 two of its AMG prolongators are banded (K2 runs their
+    # restrictions)
     ("swelling_qexact", "swelling",
      ["-N", "80", "--petsc-options", "petsc-options-exact-iterative"], 110245, [7], True),
     ("footing_qexact", "footing",
-     ["-N", "20", "--petsc-options", "petsc-options-exact-iterative", "--pc-type", "undrained"],
-     31520, [27], False),
+     ["-N", "10", "--petsc-options", "petsc-options-exact-iterative", "--pc-type", "undrained"],
+     7857, [25], True),
     ("swelling_3way_qexact", "swelling",
      ["-N", "80", "--petsc-options", "petsc-options-exact-iterative",
       "--pc-type", "diagonal 3-way"], 110245, [6], True),
@@ -254,6 +274,9 @@ MONITOR_RUN = ["-N", "80", "--petsc-options", "petsc-options-inexact", "--inner-
 # phase 13: cells of the robustness grid, their dofs and porotpu's count
 # (output/robustness-2d-*.out, output/SUMMARY.md)
 GRID_CELLS = (("swelling-2way-inexact-160", 438085, 17),)
+# phase 14: the sharded runs, (world, backend, dtype)
+MULTICHIP_RUNS = ((1, "nccl", "float64"), (1, "nccl", "float32"),
+                  (2, "gloo", "float64"), (2, "gloo", "float32"))
 
 
 def check(cond, msg):
@@ -1041,6 +1064,33 @@ def grid_phase(tmp):
     print(robustness.summarize(outdir, os.path.join(ROOT, "output")), flush=True)
 
 
+def multichip_phase(dev):
+    """14: the row-sharded solve, NCCL at W=1 here, gloo at W=2 in two
+    spawned ranks sharing the card, f64 and f32."""
+    from porotpu_torch.tools import multichip
+
+    for world, backend, dtype in MULTICHIP_RUNS:
+        label = f"14 W={world} {backend} {dtype}"
+        print(f"-- {label}: python -m porotpu_torch.tools.multichip --dtype {dtype}"
+              + (f" --spawn {world} --backend {backend}" if world > 1 else ""), flush=True)
+        if world == 1:
+            out = multichip.run(1, dtype, device=dev, backend=backend)
+        else:
+            out = multichip.spawn(world, ["--dtype", dtype, "--backend", backend], timeout=600)
+        print(multichip.report(out), flush=True)
+        check(out["world"] == world and out["backend"] == backend
+              and out["device"].startswith("cuda"), f"{label}: ran as {out['world']} "
+              f"{out['backend']} on {out['device']}")
+        check(not out["failures"], f"{label}: " + "; ".join(out["failures"]))
+        check(out["K1"] > 0 and out["K2"] > 0, f"{label}: K1 {out['K1']}, K2 {out['K2']}")
+        check(out["plain"] == 0, f"{label}: {out['plain']} banded products took a plain version")
+        if dtype == "float32":
+            check(out["K2_unsharded"] == 0, f"{label}: the unsharded f32 solve launched K2")
+        if world > 1:
+            check(out["exchanges_per_halo_product"] == 2,
+                  f"{label}: {out['exchanges_per_halo_product']} exchanges a halo product")
+
+
 def main():
     import numpy as np
     import torch
@@ -1390,6 +1440,11 @@ def main():
 
         # -- 13. the robustness grid's runner ---------------------------------
         grid_phase(tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 14. the row-sharded solve -------------------------------------------
+    multichip_phase(dev)
     check_imports()
 
     k1, k2, k3 = record["dia_mv", "L0_A", "f32"], record["dia_rmv", "L0_P", "f64"], mbrec["k3"]

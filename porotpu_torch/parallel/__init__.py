@@ -11,5 +11,4 @@ from .sharding import (
     shard_operator,
     shard_vector,
     solver_mesh,
-    submeshes,
 )

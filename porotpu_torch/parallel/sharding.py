@@ -226,15 +226,6 @@ def solver_mesh(world: int | None = None, device="cuda", *, rank: int | None = N
     return mesh
 
 
-def submeshes(mesh: RowMesh, size: int) -> RowMesh:
-    """Split a mesh into meshes of ``size`` consecutive ranks; every rank
-    calls it and gets the one it belongs to."""
-    group, _ = dist.new_subgroups(group_size=size, group=mesh.group)
-    sub = RowMesh(group, mesh.device)
-    sub.barrier()
-    return sub
-
-
 # -- vectors -------------------------------------------------------------------
 
 

@@ -4,6 +4,8 @@ only), on the N=3 and test_dia offset sets and on the launch plan's edge
 shapes; K1 and K2 also launch twice bitwise equal, take an unaligned
 input and refuse unaligned data.  The solid and fluid-pressure drivers at
 N=3 in f64 launch K1, take no plain version and match their CPU runs.
+A row mesh's local halo products (K1 on a rank's window, K2 over it,
+offsets shifted by the halo) match their plain versions.
 
 Every test here needs a CUDA card and skips without one.  This file
 imports no jax, so it runs where jax is absent:
@@ -206,3 +208,41 @@ def test_subsystem_drivers_on_the_card(name, cuda_device):
     assert counts["dia_mv"] > 0 and counts["plain"] == 0
     x, want = card.result.x.cpu().numpy(), cpu.result.x.numpy()
     assert np.abs(x - want).max() <= 1e-10 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("W", [2, 4])
+def test_halo_local_products_on_the_card(W, dtype, tol, cuda_device):
+    """Each rank's local halo products on the card against their plain
+    versions: K1 on the window [from_left | x_loc | from_right] cut from
+    a random vector, offsets shifted by hl, and K2 over the window of
+    hl + nloc + hr columns, on the slabs of a random banded operator."""
+    from porotpu_torch.ops.dia import halo_matvec_local, halo_rmatvec_local
+    from porotpu_torch.parallel import sharding
+
+    class SlabMesh:
+        device = torch.device("cpu")
+        slab_len = sharding.RowMesh.slab_len
+
+        def __init__(self, rank, world):
+            self.rank, self.world = rank, world
+
+    rng = np.random.default_rng(21)
+    n, offs = 8192, (-700, -129, -1, 0, 1, 3, 128, 811)
+    hl, hr, nloc = 700, 811, 8192 // W
+    D = DIA(torch.from_numpy(rng.normal(size=(len(offs), n))), offs, n, n)
+    x = torch.as_tensor(rng.normal(size=n + hl + hr), dtype=dtype)
+    for r in range(W):
+        sh = sharding.shard_ell(D, SlabMesh(r, W))
+        assert sh.dist[0] == "halo" and sh.halo == (hl, hr)
+        data = sh.data.to(dtype=dtype, device=cuda_device)
+        shift_dev = sh.shift_dev.to(cuda_device)
+        window = x[r * nloc : r * nloc + hl + nloc + hr].to(cuda_device)
+        y = halo_matvec_local(data, sh.shift, shift_dev, window)
+        ref = dia_kernel.dia_mv_ref(data, sh.shift, window, nloc)
+        assert ((y - ref).abs().max() / ref.abs().max()).item() <= tol
+        xl = window[hl : hl + nloc].contiguous()
+        acc = halo_rmatvec_local(data, sh.shift, shift_dev, xl, hl, hr)
+        ref = dia_kernel.dia_rmv_ref(data, sh.shift, xl, hl + nloc + hr)
+        assert acc.shape == (hl + nloc + hr,)
+        assert ((acc - ref).abs().max() / ref.abs().max()).item() <= tol

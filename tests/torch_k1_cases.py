@@ -432,11 +432,14 @@ def parallel_rank(rank, init_method, out_path):
     import torch
 
     torch.set_num_threads(1)
-    from porotpu_torch.parallel import solver_mesh, submeshes
+    import torch.distributed as dist
+
+    from porotpu_torch.parallel import RowMesh, solver_mesh
 
     mesh4 = solver_mesh(PARALLEL_WORLD, "cpu", rank=rank, init_method=init_method, timeout=60)
     try:
-        mesh2 = submeshes(mesh4, 2)
+        # the halves of the group, ranks 0-1 and 2-3, each a mesh of two
+        mesh2 = RowMesh(dist.new_subgroups(group_size=2)[0], mesh4.device)
         out = {"rank": rank}
         for mesh in (mesh2, mesh4):
             # one seed on every rank: each slab is of the same whole vector
