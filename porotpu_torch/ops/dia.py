@@ -40,8 +40,8 @@ its rows and its ``dist`` tag says how a product communicates
 ``col_slab`` says whether the column space (the matvec's input, the
 transpose's output) is a field in slabs or replicated.  A rank's local
 compute is a plain function of (slab, window, shift): ``halo_matvec_local``,
-``halo_rmatvec_local`` and ``halo_fold``.  ``Dense`` and ELL take
-``("gather", mesh)``.
+``halo_rmatvec_local`` and ``halo_fold``.  A ``Transposed`` block's tag
+is its inner DIA's; ``Dense`` and ELL take ``("gather", mesh)``.
 """
 
 from __future__ import annotations
@@ -308,10 +308,6 @@ class Transposed(nn.Module):
         s = self.inner.shape
         return (s[1], s[0])
 
-    @property
-    def dist(self):
-        return self.inner.dist
-
     def matvec(self, x):
         return self.inner.rmatvec(x)
 
@@ -329,7 +325,7 @@ class Dense(nn.Module):
     it holds its rows' slab, gathers a field input and sums its transpose
     over the ranks."""
 
-    dist = None  # None, ("repl",) or ("gather", mesh)
+    dist = None  # None, or ("gather", mesh) on a row mesh
     col_slab = True
 
     def __init__(self, data):

@@ -55,7 +55,7 @@ class ELL(nn.Module):
     the transposed layout, dataT (ncols, LT) and colsT (ncols, LT) hold the
     ELL of A^T, each row's entries in increasing row order of A."""
 
-    dist = None  # None, ("repl",) or ("gather", mesh): rows in slabs, columns global
+    dist = None  # None, or ("gather", mesh): rows in slabs, columns global
     col_slab = True
 
     def __init__(self, data, cols, ncols, dataT=None, colsT=None):
