@@ -2,11 +2,14 @@
 
 ELL is the last-resort format of ``device_matrix`` (unbanded blocks); its
 product is a plain torch gather, as porotpu computes it outside Pallas.
-The transpose product is the same gather on a stored transposed ELL
-(``store_transpose``, built on the host): a scatter-add (``index_add_``)
-sums in an order that changes from run to run on the card, and made two
-runs of one solve differ in the last bits.  ``ELL_PRODUCTS`` counts the
-products by (product, dtype, rows, width).
+The transpose product is the same gather on a transposed ELL built with
+the matrix on the host (``store_transpose``; ``device_matrix`` asks for
+it where a solve transposes, the AMG prolongators): a scatter-add
+(``index_add_``) sums in an order that changes from run to run on the
+card, and made two runs of one solve differ in the last bits.  On the
+card an ELL built without the layout refuses its transpose; on the CPU it
+transposes on the fly.  ``ELL_PRODUCTS`` counts the products by (product,
+dtype, rows, width).
 """
 
 from __future__ import annotations
@@ -106,17 +109,20 @@ class ELL(nn.Module):
     forward = matvec
 
     def rmatvec(self, x):
-        """A^T x: the gather on the stored transposed layout, summed in a
-        fixed order."""
-        if self.dataT is None:
-            # built once, on the host, for a matrix made without it (the
-            # prolongators that restrict are made with it)
-            dT, colsT = ell_transpose(self.data.detach().cpu().double().numpy(),
-                                      self.cols.cpu().numpy(), self.ncols)
-            self.dataT = torch.as_tensor(dT, dtype=self.data.dtype).to(self.data.device)
-            self.colsT = torch.from_numpy(colsT).to(self.data.device)
+        """A^T x: the gather on the transposed layout, summed in a fixed
+        order."""
+        dataT, colsT = self.dataT, self.colsT
+        if dataT is None:
+            if self.data.is_cuda:
+                raise RuntimeError(
+                    "ELL.rmatvec: this matrix was built without its transposed layout; "
+                    "build it with ELL.from_csr(store_transpose=True) "
+                    "(device_matrix(need_rmatvec=True))"
+                )
+            dT, cT = ell_transpose(self.data.double().numpy(), self.cols.numpy(), self.ncols)
+            dataT, colsT = torch.as_tensor(dT, dtype=self.data.dtype), torch.from_numpy(cT)
         self._count("rmatvec")
-        y = (self.dataT * x[self.colsT]).sum(1)
+        y = (dataT * x[colsT]).sum(1)
         if self.dist is not None and self.dist[0] == "gather":
             mesh = self.dist[1]
             y = mesh.allreduce_sum(y)

@@ -28,7 +28,8 @@ def config_key(**kwargs) -> str:
 
 # Bump whenever a cached module's layout changes (DIA, ELL, AMG, PC
 # classes).  A cache written under another schema misses and rebuilds.
-SCHEMA = "torch-1"
+# torch-2: ELL holds its transposed layout (dataT, colsT).
+SCHEMA = "torch-2"
 
 
 def _tmp_name(path: str) -> str:

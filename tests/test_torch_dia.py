@@ -245,6 +245,22 @@ def test_fieldmatrix_matches_porotpu_f64():
         np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12 * np.abs(want).max())
 
 
+def test_ell_transpose_gathers_its_transposed_layout():
+    """ELL's transpose is the gather on the transposed layout, stored with
+    the matrix or, on the CPU only, built on the fly: both equal bit for
+    bit, and A^T y to 1e-12 of max|y|."""
+    A = sp.random(300, 70, density=0.05, random_state=5, format="csr")
+    y = np.random.default_rng(6).normal(size=300)
+    stored = ELL.from_csr(A, torch.float64, store_transpose=True)
+    bare = ELL.from_csr(A, torch.float64)
+    assert stored.dataT is not None and bare.dataT is None
+    got = stored.rmatvec(torch.from_numpy(y))
+    assert torch.equal(got, bare.rmatvec(torch.from_numpy(y)))
+    want = A.T @ y
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12 * np.abs(want).max())
+    assert bare.dataT is None  # the CPU transposes on the fly and keeps nothing
+
+
 def test_cpu_dispatch_counts_plain_sweeps():
     A = banded_random(64, [-3, 0, 5], np.random.default_rng(8))
     for dtype in (torch.float32, torch.float64):  # rmatvec via dataT, then via A's layout

@@ -5,7 +5,8 @@ shapes; K1 and K2 also launch twice bitwise equal, take an unaligned
 input and refuse unaligned data.  The solid and fluid-pressure drivers at
 N=3 in f64 launch K1, take no plain version and match their CPU runs.
 A row mesh's local halo products (K1 on a rank's window, K2 over it,
-offsets shifted by the halo) match their plain versions.
+offsets shifted by the halo) match their plain versions.  ELL's transpose
+(a gather on its transposed layout) is bitwise repeatable on the card.
 
 Every test here needs a CUDA card and skips without one.  This file
 imports no jax, so it runs where jax is absent:
@@ -246,3 +247,25 @@ def test_halo_local_products_on_the_card(W, dtype, tol, cuda_device):
         ref = dia_kernel.dia_rmv_ref(data, sh.shift, xl, hl + nloc + hr)
         assert acc.shape == (hl + nloc + hr,)
         assert ((acc - ref).abs().max() / ref.abs().max()).item() <= tol
+
+
+def test_ell_transpose_on_the_card(cuda_device):
+    """ELL's transpose gathers the transposed layout built with the matrix:
+    two products on the card are bitwise equal and match the CPU's to
+    1e-12; an ELL built without the layout refuses its transpose there."""
+    import scipy.sparse as sp
+
+    from porotpu_torch.ops.sparse import ELL
+
+    A = sp.random(3000, 700, density=0.01, random_state=3, format="csr")
+    y = torch.from_numpy(np.random.default_rng(4).normal(size=3000))
+    E = ELL.from_csr(A, torch.float64, store_transpose=True)
+    want = E.rmatvec(y)
+    E.to(cuda_device)
+    yd = y.to(cuda_device)
+    first, second = E.rmatvec(yd), E.rmatvec(yd)
+    assert torch.equal(first, second)
+    assert ((first.cpu() - want).abs().max() / want.abs().max()).item() <= 1e-12
+    bare = ELL.from_csr(A, torch.float64).to(cuda_device)
+    with pytest.raises(RuntimeError, match="transposed layout"):
+        bare.rmatvec(yd)

@@ -5,8 +5,9 @@ the mesh files, porotpu_torch against porotpu on the CPU.
   and gives its solution bit for bit (swelling N=3 f64 at the defaults,
   and the bench path's ``build_problem`` at N=2 in f32); a restore under
   another ``inner iters`` equals a fresh build with that count; garbage,
-  a stale schema, a truncated pickle and a wrong tree miss and rebuild
-  (as porotpu's tests/test_io.py:81-106); the port's bench cache files
+  a stale schema, a truncated pickle, a wrong tree and a file of the
+  previous schema holding an ELL without its transposed layout miss and
+  rebuild (as porotpu's tests/test_io.py:81-106); the port's bench cache files
   never take porotpu's names.  That a restore imports neither jax nor
   porotpu is checked in the shared subprocess of tests/torch_k1_cases.py.
 - The writers: the VTU/PVD and XDMF/HDF5 files of the port's writers
@@ -24,6 +25,7 @@ import re
 
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 from porotpu.fem import meshio as jmeshio
@@ -33,6 +35,7 @@ from porotpu.utils import io as jio
 from porotpu_torch.fem import meshio
 from porotpu_torch.fem.mesh import generate_cube, generate_square
 from porotpu_torch.models import benchmarks
+from porotpu_torch.ops.sparse import ELL
 from porotpu_torch.tools import bench
 from porotpu_torch.utils import cache, io
 from torch_k1_cases import import_checks, one_blas_thread  # noqa: F401
@@ -83,7 +86,9 @@ def test_restore_applies_inner_iters(fresh):
     assert torch.equal(q.sol, r.sol)
 
 
-@pytest.mark.parametrize("kind", ["garbage", "stale_schema", "truncated", "wrong_tree"])
+@pytest.mark.parametrize(
+    "kind", ["garbage", "stale_schema", "truncated", "wrong_tree", "old_ell_layout"]
+)
 def test_unusable_cache_misses_and_rebuilds(kind, fresh, tmp_path):
     p, good = fresh
     path = tmp_path / "bad.pkl"
@@ -94,6 +99,12 @@ def test_unusable_cache_misses_and_rebuilds(kind, fresh, tmp_path):
     elif kind == "truncated":
         blob = good.read_bytes()
         path.write_bytes(blob[: len(blob) // 2])
+    elif kind == "old_ell_layout":
+        # the schema "torch-1" wrote ELL without dataT / colsT
+        old = ELL.from_csr(sp.random(12, 9, density=0.3, random_state=0, format="csr"))
+        del old._buffers["dataT"], old._buffers["colsT"]
+        tree = dict(cache.load(str(good)), old_ell=old)
+        path.write_bytes(pickle.dumps({"schema": "torch-1", "tree": tree}, protocol=4))
     else:
         path.write_bytes(pickle.dumps({"schema": cache.SCHEMA, "tree": {"A_dev": 1}}))
     if kind != "wrong_tree":
