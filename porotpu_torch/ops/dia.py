@@ -18,8 +18,8 @@ On a row mesh (``parallel/sharding.py``) an operator holds the slab of
 its rows and its ``dist`` tag says how a product communicates
 (porotpu/ops/dia.py:326-510):
 
-- ``None``: no mesh, the code above; ``("repl",)``: every rank holds the
-  whole operator (AMG levels >= 1) and runs it as without a mesh;
+- ``None``: no mesh, or an operator every rank holds whole (AMG levels
+  >= 1): the code above;
 - ``("halo", mesh)``: the embedded space is the row space and the halo,
   ``hl = max(0, -min off)`` left and ``hr = max(off, 0)`` right, fits one
   slab.  The matvec receives ``hl`` entries from the left neighbour and
@@ -123,7 +123,7 @@ class DIA(nn.Module):
     On a mesh data holds the rank's slab (nd, nloc) and nrows stays global.
     """
 
-    dist = None  # None, ("repl",), ("halo", mesh) or ("gather", mesh)
+    dist = None  # None, ("halo", mesh) or ("gather", mesh)
     col_slab = True  # on a mesh: the column space is a field in slabs
 
     def __init__(self, data, offsets, nrows, ncols, col_emb=None, ne=None, dataT=None):
@@ -211,7 +211,7 @@ class DIA(nn.Module):
     # -- products -------------------------------------------------------
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        if self.dist is not None and self.dist[0] != "repl":
+        if self.dist is not None:
             return self._mesh_matvec(x)
         if self.col_emb is not None:
             xe = x.new_zeros(self.ne)
@@ -225,7 +225,7 @@ class DIA(nn.Module):
     def rmatvec(self, x: torch.Tensor) -> torch.Tensor:
         """A^T x: K1 on (dataT, -offsets) when the transposed layout is
         stored, otherwise K2 on (data, offsets)."""
-        if self.dist is not None and self.dist[0] != "repl":
+        if self.dist is not None:
             return self._mesh_rmatvec(x)
         if self.dataT is not None:
             y = dia_kernel.mv(

@@ -4,7 +4,6 @@ from .sharding import (
     COLLECTIVES,
     RowMesh,
     gather_vector,
-    replicate,
     reset_collectives,
     shard_amg,
     shard_ell,

@@ -272,29 +272,6 @@ def local_index(mesh: RowMesh, sizes, idx):
 # -- operators -----------------------------------------------------------------
 
 
-def replicate(tree, mesh: RowMesh):
-    """Every rank holds the whole of ``tree`` (porotpu :101): banded
-    operators are tagged ``("repl",)``, which runs them as without a mesh;
-    tensors and other modules are returned as they are."""
-    from ..ops.dia import DIA, Transposed
-
-    return _replicate_op(tree, mesh) if isinstance(tree, (DIA, Transposed)) else tree
-
-
-def _replicate_op(E, mesh: RowMesh):
-    """A replicated copy of a host operator, DIA tagged ``("repl",)``
-    (porotpu :194); the buffers are shared, not copied."""
-    from ..ops.dia import DIA, Transposed
-
-    if isinstance(E, Transposed):
-        return Transposed(_replicate_op(E.inner, mesh))
-    if isinstance(E, DIA):
-        out = DIA(E.data, E.offsets, E.nrows, E.ncols, E.col_emb, E.ne, dataT=E.dataT)
-        out.dist = ("repl",)
-        return out
-    return E
-
-
 def shard_ell(E, mesh: RowMesh, col_slab: bool = True, memo: dict | None = None):
     """Row-partition a host operator (porotpu :121): the slab of its rows,
     its columns global.  ``col_slab``: its column space (the input of the
@@ -413,8 +390,7 @@ def shard_amg(amg, mesh: RowMesh, memo: dict | None = None):
                 mesh.slab(lvl.dinv), lvl.lmax,
             ))
         else:
-            levels.append(AMGLevel(_replicate_op(lvl.A, mesh), _replicate_op(lvl.P, mesh),
-                                   lvl.dinv, lvl.lmax))
+            levels.append(lvl)
     out = AMG(levels, amg.coarse_inv, amg.presmooth, amg.postsmooth, amg.cheb_lower)
     out.mesh = mesh
     memo[id(amg)] = out
