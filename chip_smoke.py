@@ -93,8 +93,8 @@
    (7 iterations; the fp block is the ``fgmres+fs`` solve: 60 FGMRES
    iterations at most on the saddle fp operator, stopped at rtol 1e-12,
    preconditioned by the Schur fieldsplit with 20 cg+amg fluid
-   iterations and a dense-LU Schur part), footing N=10 2-way undrained
-   (25; two banded prolongators, K2 on their restrictions) and swelling N=80
+   iterations and a dense-LU Schur part), footing N=20 2-way undrained
+   (27; no banded transpose, no K2) and swelling N=80
    ``diagonal 3-way`` (6; every block cg+amg at 60 iterations).  Each run
    also prints its host syncs in the solve (``torch.cuda``'s sync debug
    mode, one warning a sync) and the inner FGMRES iterations of each fp
@@ -172,11 +172,13 @@
    its sharded solve and reads them just after; it must give the
    unsharded port solve's count of the same padded problem, meet the
    true-residual field-wise guard, launch K1 and K2 and no plain
-   product, and gather no vector longer than the largest padded field;
-   in f64 its x must lie within 1e-8 relative of the unsharded x, in f32
-   (where rounding alone moves x more) within twice the unsharded f32
-   x's distance from the f64 solution.  f32 K2 runs only on the sharded
-   path (a sharded operator holds no dataT).  At W=2 each halo product
+   product, and gather no vector longer than the largest padded field.
+   The guard is taken on the gathered sharded x through the unsharded
+   operator.  Its x must lie within 1e-8 relative of the unsharded x in
+   f64, and within 5e-3 in f32, where the sharded path's K2 rounds
+   otherwise than the unsharded K1 on dataT (an f32 solve lies 2.8e-2
+   from the f64 one).  f32 K2 runs only on the sharded path (a sharded
+   operator holds no dataT).  At W=2 each halo product
    makes 2 exchanges.  Printed: the collectives of a solve and the median
    solve time sharded against unsharded.
 
@@ -225,14 +227,13 @@ DRIVER_RUNS = (
      31520, [248], True),
     # the quasi-exact protocol (paper-scripts/robustness_2d.sh's qexact
     # cells): the fp block is the fgmres+fs solve, the 3-way blocks cg+amg;
-    # footing's fp operator stores ELL, as in its 2-way inexact run, and at
-    # N=10 two of its AMG prolongators are banded (K2 runs their
-    # restrictions)
+    # footing's fp operator and prolongators store ELL, as in its 2-way
+    # inexact run
     ("swelling_qexact", "swelling",
      ["-N", "80", "--petsc-options", "petsc-options-exact-iterative"], 110245, [7], True),
     ("footing_qexact", "footing",
-     ["-N", "10", "--petsc-options", "petsc-options-exact-iterative", "--pc-type", "undrained"],
-     7857, [25], True),
+     ["-N", "20", "--petsc-options", "petsc-options-exact-iterative", "--pc-type", "undrained"],
+     31520, [27], False),
     ("swelling_3way_qexact", "swelling",
      ["-N", "80", "--petsc-options", "petsc-options-exact-iterative",
       "--pc-type", "diagonal 3-way"], 110245, [6], True),
@@ -406,9 +407,10 @@ def banded_transposes(ops):
 
 
 def time_heaviest_ell(ops, ell, dev, torch, mb, peaks):
-    """Cold and warm time of the ELL product of each kind (gather matvec,
-    index_add rmatvec) that took the most of a solve's ELL work (products
-    x rows x width), beside the bytes it must move."""
+    """Cold and warm time of the ELL product of each kind (the gather on
+    A's layout, the transpose's gather on the stored transposed layout)
+    that took the most of a solve's ELL work (products x rows x width),
+    beside the bytes it must move."""
     ells = {(str(m.data.dtype).removeprefix("torch."), *m.data.shape): m for m in ops["ELL"]}
     for product in ("matvec", "rmatvec"):
         keys = [k for k in ell if k[0] == product and k[1:] in ells]
@@ -416,11 +418,13 @@ def time_heaviest_ell(ops, ell, dev, torch, mb, peaks):
             continue
         key = max(keys, key=lambda k: ell[k] * k[2] * k[3])
         op = ells[key[1:]]
-        n, width = op.data.shape
-        n_in, n_out = (op.ncols, n) if product == "matvec" else (n, op.ncols)
+        # the layout the product reads: A's, or the transposed one
+        data, cols = (op.data, op.cols) if product == "matvec" else (op.dataT, op.colsT)
+        n, width = data.shape
+        n_in = op.ncols if product == "matvec" else op.data.shape[0]
         x = torch.randn(n_in, dtype=op.data.dtype, device=dev)
-        nbytes = (n * width * (op.data.element_size() + op.cols.element_size())
-                  + (n_in + n_out) * op.data.element_size())
+        nbytes = (n * width * (data.element_size() + cols.element_size())
+                  + (n_in + n) * data.element_size())
         b_ms, _ = mb.bound(nbytes, 2 * n * width, op.data.dtype)
         run = getattr(op, product)
         ms, warm = mb.cold_ms(lambda: run(x), 30), mb.cuda_ms(lambda: run(x), 50)

@@ -19,11 +19,10 @@ its collectives: exchanges (point-to-point messages, per halo product),
 all-reduces and all-gathers with the largest one's length.  An all-gather
 longer than the largest padded field fails the run (porotpu's "no
 system-scale all-gather" rule, :121-155), as do a count that differs from
-the unsharded one, x off by more than ``--x-rtol`` (f64) and a missed
-guard.  In f32, where rounding alone moves x by more than 1e-8, the
-sharded and the unsharded x are each held against the f64 solve of the
-same problem: the sharded one may be at most twice as far from it.
-The last line is the result as JSON.
+the unsharded one, x off the unsharded x by more than ``X_RTOL`` and a
+missed guard.  The guard is the true residual's field-wise test of the
+gathered sharded x through the unsharded operator, so a wrong halo
+product cannot vouch for itself.  The last line is the result as JSON.
 
 ``--spawn W`` starts W ranks as child processes of this one (a
 ``file://`` rendezvous in a temporary directory); under torchrun each
@@ -52,6 +51,12 @@ OVERRIDES = {
     "solver atol": 1e-6,
     "solver maxiter": 60,
 }
+# x against the unsharded x, relative: f64 (porotpu's bound,
+# tests/test_parallel.py:76) and f32.  In f32 the sharded solve runs K2
+# where the unsharded one runs K1 on dataT, and that rounding moves x by
+# 3.5e-4 to 1.4e-3 at rtol 1e-5 (gloo W=2 and NCCL W=1 on an H100); an f32
+# solve is 2.8e-2 from the f64 one, so a limit of 5e-3 tells the two apart
+X_RTOL = {"float64": 1e-8, "float32": 5e-3}
 
 
 def _median_solve(problem, b, reps, torch):
@@ -88,7 +93,7 @@ def collectives_summary(counts, products, padded_sizes):
 
 
 def run(world=None, dtype="float64", device="cuda", backend=None, rank=None,
-        init_method=None, N=PROBLEM_N, reps=3, x_rtol=1e-8, timeout=None):
+        init_method=None, N=PROBLEM_N, reps=3, timeout=None):
     """One rank's part: the sharded solve and, on rank 0, the unsharded one
     and the checks.  Returns the result dict on rank 0, None elsewhere.
     Makes the process group and destroys it at the end."""
@@ -126,11 +131,7 @@ def run(world=None, dtype="float64", device="cuda", backend=None, rank=None,
         coll["per_kind"] = {f"{op}:{n}": c for (op, n), c in sorted(sharding.COLLECTIVES.items())}
         problem.sol = res.x
         x = problem.unpadded_solution()
-        # the true residual's field-wise test, reduced over the ranks
-        fw = FieldwiseTest.from_sizes(problem.local_sizes, b, mesh)
-        ea, er = (v.item() for v in fw.errors(b - problem.A_dev.matvec(res.x)))
-        p = problem.parameters
-        guard = ea < float(p["solver atol"]) or er < float(p["solver rtol"])
+        xg = sharding.gather_vector(res.x, mesh, problem.local_sizes)
         _, t_sharded = _median_solve(problem, b, reps, torch)
         out = None
         if mesh.rank == 0:
@@ -143,21 +144,13 @@ def run(world=None, dtype="float64", device="cuda", backend=None, rank=None,
             counts1 = dict(dia_kernel.COUNTS)
             ref.sol = res1.x
             x1 = ref.unpadded_solution()
+            # the true residual of the sharded x through the unsharded operator
+            fw = FieldwiseTest.from_sizes(ref.padded_sizes, b1)
+            ea, er = (v.item() for v in fw.errors(b1 - ref.A_dev.matvec(xg)))
+            p = ref.parameters
+            guard = ea < float(p["solver atol"]) or er < float(p["solver rtol"])
             _, t_one = _median_solve(ref, b1, reps, torch)
-            rel = lambda a, c: float(np.linalg.norm(a - c) / np.linalg.norm(c))  # noqa: E731
-            x_rel = rel(x, x1)
-            f64 = {}
-            if dtype == "float32":
-                # f32 rounding moves x by more than 1e-8: hold both f32 solves
-                # against the f64 solve of the same problem instead
-                r64 = benchmarks.swelling(N, overrides=dict(ov, dtype="float64"),
-                                          device=mesh.device)
-                r64.create_solver()
-                r64.first_timestep = False
-                b64 = r64.get_rhs(t)
-                r64.sol = r64._solve(b64, torch.zeros_like(b64)).x
-                x64 = r64.unpadded_solution()
-                f64 = {"x_rel_f64": rel(x, x64), "x_rel_f64_unsharded": rel(x1, x64)}
+            x_rel = float(np.linalg.norm(x - x1) / np.linalg.norm(x1))
             out = {
                 "world": W, "backend": mesh.backend, "device": str(mesh.device),
                 "card": torch.cuda.get_device_name(mesh.device)
@@ -167,15 +160,16 @@ def run(world=None, dtype="float64", device="cuda", backend=None, rank=None,
                 "iterations": res.iters, "converged": bool(res.converged),
                 "iterations_unsharded": res1.iters,
                 "converged_unsharded": bool(res1.converged),
-                "guard_abs": ea, "guard_rel": er, "guard_met": bool(guard), "x_rel": x_rel,
+                "guard_abs": ea, "guard_rel": er, "guard_met": bool(guard),
+                "x_rel": x_rel, "x_rtol": X_RTOL[dtype],
                 "solve_s": t_sharded, "solve_s_unsharded": t_one,
                 "K1": counts["dia_mv"], "K2": counts["dia_rmv"], "plain": counts["plain"],
                 "K1_unsharded": counts1["dia_mv"], "K2_unsharded": counts1["dia_rmv"],
-                **f64, **coll,
+                **coll,
                 "foreign": sorted(m for m in sys.modules
                                   if m.split(".")[0] in ("jax", "porotpu")),
             }
-            failures = check(out, x_rtol)
+            failures = check(out)
             out["failures"] = failures
         # every rank waits for rank 0's unsharded solve before the group ends
         mesh.barrier()
@@ -184,21 +178,14 @@ def run(world=None, dtype="float64", device="cuda", backend=None, rank=None,
         mesh.close()
 
 
-def check(out, x_rtol):
+def check(out):
     """The run's failures, as messages (none: it passed)."""
     fails = []
     if out["iterations"] != out["iterations_unsharded"] or not out["converged"]:
         fails.append(f"{out['iterations']} iterations (converged {out['converged']}), "
                      f"unsharded {out['iterations_unsharded']}")
-    if out["dtype"] == "float32":
-        # as accurate as the unsharded f32 solve: within twice its distance
-        # from the f64 solution (the triangle inequality's bound for two
-        # solves each that close)
-        if not out["x_rel_f64"] <= 2 * out["x_rel_f64_unsharded"]:
-            fails.append(f"f32 x off the f64 x by {out['x_rel_f64']:.3e}, more than twice "
-                         f"the unsharded f32 x's {out['x_rel_f64_unsharded']:.3e}")
-    elif not out["x_rel"] <= x_rtol:
-        fails.append(f"x off the unsharded x by {out['x_rel']:.3e} > {x_rtol:g}")
+    if not out["x_rel"] <= out["x_rtol"]:
+        fails.append(f"x off the unsharded x by {out['x_rel']:.3e} > {out['x_rtol']:g}")
     if not out["guard_met"]:
         fails.append(f"true-residual guard missed (abs {out['guard_abs']:.3e}, "
                      f"rel {out['guard_rel']:.3e})")
@@ -216,11 +203,10 @@ def report(out) -> str:
         f"multichip: W={out['world']} {out['backend']} on {out['device']} ({out['card']}), "
         f"{out['dtype']}, swelling N={out['N']}, dofs {out['dofs']}, padded {out['padded']}",
         f"  sharded {out['iterations']} iterations (converged {out['converged']}), unsharded "
-        f"{out['iterations_unsharded']} (converged {out['converged_unsharded']}); guard abs "
-        f"{out['guard_abs']:.3e} rel {out['guard_rel']:.3e} met {out['guard_met']}; "
-        f"|x - x_unsharded| / |x_unsharded| = {out['x_rel']:.3e}"
-        + (f"; against the f64 x: sharded {out['x_rel_f64']:.3e}, unsharded "
-           f"{out['x_rel_f64_unsharded']:.3e}" if "x_rel_f64" in out else ""),
+        f"{out['iterations_unsharded']} (converged {out['converged_unsharded']}); guard "
+        f"(unsharded operator) abs {out['guard_abs']:.3e} rel {out['guard_rel']:.3e} met "
+        f"{out['guard_met']}; |x - x_unsharded| / |x_unsharded| = {out['x_rel']:.3e} "
+        f"(limit {out['x_rtol']:g})",
         f"  median solve: sharded {out['solve_s']:.4f} s, unsharded {out['solve_s_unsharded']:.4f}"
         f" s (ratio {out['solve_s'] / out['solve_s_unsharded']:.2f})",
         f"  launches: K1 {out['K1']}, K2 {out['K2']}, plain {out['plain']} (unsharded: K1 "
@@ -284,15 +270,13 @@ def main(argv=None):
     ap.add_argument("--backend", choices=("nccl", "gloo"))
     ap.add_argument("-N", type=int, default=PROBLEM_N)
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--x-rtol", type=float, default=1e-8)
     ap.add_argument("--timeout", type=float, help="seconds a collective may wait")
     ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--world", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--init", help=argparse.SUPPRESS)
     ap.add_argument("--result", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    common = ["--dtype", args.dtype, "-N", str(args.N), "--reps", str(args.reps),
-              "--x-rtol", str(args.x_rtol)]
+    common = ["--dtype", args.dtype, "-N", str(args.N), "--reps", str(args.reps)]
     if args.device != "cuda":
         common += ["--device", args.device]
     if args.backend:
@@ -303,7 +287,7 @@ def main(argv=None):
         out = spawn(args.spawn, common)
     else:
         out = run(args.world, args.dtype, args.device, args.backend, args.rank, args.init,
-                  args.N, args.reps, args.x_rtol, args.timeout)
+                  args.N, args.reps, args.timeout)
         if out is None:
             return 0
         if args.result:  # a spawned rank 0: the parent prints
