@@ -680,12 +680,10 @@ class Poromechanics(AbstractPhysics):
             )
         mesh = self.row_mesh
         accel = int(p.get("inner accel order", 0))
-        if mesh is not None and (solver_type in ("aar", "cg") or accel > 0):
-            raise NotImplementedError(
-                f"solver type {solver_type} with inner accel order {accel} on a row mesh: "
-                "a sharded solve runs gmres/fgmres without Anderson acceleration; the rest "
-                "is ROADMAP M9.2"
-            )
+        if mesh is not None and solver_type == "aar":
+            raise NotImplementedError("solver type aar on a row mesh is ROADMAP M9.2")
+        if mesh is not None and accel > 0:
+            raise NotImplementedError("inner accel order on a row mesh is ROADMAP M9.2")
         restart = int(p.get("gmres restart", min(50, maxiter)))
         # "solver chunk": ceil(maxiter/chunk) warm-started calls of a
         # chunk-maxiter solve — identical to one long gmres solve only when
@@ -727,7 +725,7 @@ class Poromechanics(AbstractPhysics):
             if solver_type == "cg":
                 return cg(
                     self.A_dev.matvec, b, x0=x0, M=self.pc, rtol=rtol, atol=atol,
-                    maxiter=maxiter, fieldwise=fw, divtol=divtol,
+                    maxiter=maxiter, fieldwise=fw, divtol=divtol, mesh=mesh,
                 )
             # gmres and fgmres both run flexible GMRES, as porotpu's: the
             # inner solves make the PC non-constant.  With "inner accel

@@ -238,11 +238,13 @@ def import_checks():
 
 # -- the row mesh: one gloo group of four ranks for tests/test_torch_parallel.py
 
-# the full solves the group runs, as benchmarks builder, N, overrides (pad
-# multiple 4 added), whether the outer blocks and couplings store ELL,
-# and the mesh sizes: porotpu's tests/test_parallel.py:66-92 cases, and
-# the 3-way one with ELL blocks (footing's ELL starts at N=10, and its
-# solves make thousands of collectives: too slow for a CPU test)
+# the full solves the group runs, as builder (a benchmarks function, or
+# the swelling driver's flags), N, overrides (pad multiple 4 added),
+# whether the outer blocks and couplings store ELL, and the mesh sizes:
+# porotpu's tests/test_parallel.py:66-92 cases, the 3-way one with ELL
+# blocks (footing's ELL starts at N=10, and its solves make thousands of
+# collectives: too slow for a CPU test), and the solver types and PCs of
+# the other solve paths at the sizes of tests/test_torch_outer.py
 PARALLEL_SOLVES = {
     "swelling_diagonal_hypre": ("swelling", 6, {
         "pc type": "diagonal", "inner pc type": "hypre", "solver rtol": 1e-8,
@@ -253,6 +255,10 @@ PARALLEL_SOLVES = {
     "swelling_3way_lu_ell": ("swelling", 4, {
         "pc type": "diagonal 3-way", "inner pc type": "lu", "solver rtol": 1e-8,
         "solver atol": 1e-12, "solver maxiter": 400}, True, (2, 4)),
+    "swelling_cg_maxiter20": (["--solver-type", "cg"], 3, {"solver maxiter": 20}, False,
+                              (2, 4)),
+    "swelling_cg_4_chunks": (["--solver-type", "cg"], 3, {
+        "solver maxiter": 20, "solver chunk": 5}, False, (2, 4)),
 }
 PARALLEL_WORLD = 4
 
@@ -265,7 +271,17 @@ def parallel_problem(name, device="cpu", **more):
 
     builder, N, ov, ell, _ = PARALLEL_SOLVES[name]
     ov = dict(ov, **{"pad multiple": PARALLEL_WORLD}, **more)
-    p = getattr(benchmarks, builder)(N, overrides=ov, device=device)
+    if isinstance(builder, list):
+        from porotpu_torch.drivers import swelling
+
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        flags = [os.path.join(repo, f) if f.startswith("petsc-options") else f
+                 for f in builder]
+        p = swelling.setup(["-N", str(N), *flags, "--device", device], overrides=ov)
+        # the driver's flags are applied over the overrides: apply them again
+        p.parameters.update(ov)
+    else:
+        p = getattr(benchmarks, builder)(N, overrides=ov, device=device)
     if ell:
         build = p._build_operators
 
@@ -412,10 +428,8 @@ def _rank_cases(mesh, rng):
         q = parallel_problem(name)
         q.create_solver(mesh)
         q.first_timestep = False
-        b = q.get_rhs(q.t0 + q.parameters["dt"])
-        res = q._solve(b, torch.zeros_like(b))
-        q.sol = res.x
-        out["solves"][name] = {"iterations": res.iters, "converged": bool(res.converged),
+        its = q.solve_time_step(q.t0 + q.parameters["dt"])
+        out["solves"][name] = {"iterations": its, "converged": bool(q.last_result.converged),
                                "x": q.unpadded_solution().tolist(),
                                "ell": sum(type(m).__name__ == "ELL" for m in q.A_dev.modules())}
         out["seconds"][name] = time.perf_counter() - t0
