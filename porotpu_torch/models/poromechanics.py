@@ -680,8 +680,6 @@ class Poromechanics(AbstractPhysics):
             )
         mesh = self.row_mesh
         accel = int(p.get("inner accel order", 0))
-        if mesh is not None and solver_type == "aar":
-            raise NotImplementedError("solver type aar on a row mesh is ROADMAP M9.2")
         if mesh is not None and accel > 0:
             raise NotImplementedError("inner accel order on a row mesh is ROADMAP M9.2")
         restart = int(p.get("gmres restart", min(50, maxiter)))
@@ -720,6 +718,7 @@ class Poromechanics(AbstractPhysics):
                     pc_accel_order=accel,
                     divtol=divtol,
                     monitor=bool(p.get("solver monitor", False)),
+                    mesh=mesh,
                 )
             fw = FieldwiseTest.from_sizes(sizes, b, mesh) if use_fieldwise else None
             if solver_type == "cg":

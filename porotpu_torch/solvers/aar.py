@@ -15,6 +15,11 @@ first), so the loop reads back one value an iteration: ||f||, with the
 Gram matrix and F f on the mixing steps, for the stop test, the ``tiny``
 guard and the host's Gram solve.  ``pc_accel_order`` Anderson-mixes the
 PC output as well (``AndersonAccelerator``: one more sync a step).
+
+With ``mesh`` (a row mesh: b, x and the history rings hold the rank's
+slabs) that read is one all-reduce of the local squared ||f||, Gram
+matrix and F f (``anderson.gram_read``); error0 is the norm over the
+ranks, and the Gram solve runs on every rank alike.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .anderson import AndersonAccelerator, alpha_to, masked_gram_alpha
+from .anderson import AndersonAccelerator, alpha_to, gram_read, masked_gram_alpha
 from .gmres import _np_dtype
 from .result import SolveResult
 
@@ -42,6 +47,7 @@ def aar(
     pc_accel_order: int = 0,
     divtol: float = 1e20,
     monitor: bool = False,
+    mesh=None,
 ):
     """Solve A x = b with the preconditioned AAR method.
 
@@ -57,11 +63,14 @@ def aar(
     if M is None:
         M = lambda r: r  # noqa: E731
     m = max(order, 1)
+    if mesh is not None and pc_accel_order > 0:
+        raise NotImplementedError("Anderson acceleration on a row mesh is ROADMAP M9.2")
     acc = AndersonAccelerator(pc_accel_order) if pc_accel_order > 0 else None
     ast = acc.init(n, b.dtype, b.device) if acc else None
 
     f_unprec = b - A(x0)
-    error0 = dt.type(torch.linalg.norm(f_unprec).item())
+    norm = torch.linalg.norm if mesh is None else mesh.norm
+    error0 = dt.type(norm(f_unprec).item())
     error0 = error0 if error0 > 0 else dt.type(1.0)
     # the first pair's f is preconditioned (lib/AAR.py:133-137); error0
     # stays unpreconditioned (lib/AAR.py:56-58)
@@ -83,11 +92,7 @@ def aar(
             F = torch.cat([F[1:], (fk - fk_old)[None]])
             nh = min(nh + 1, order)
         is_accel = order > 0 and (it + 1) % p == 0 and nh > 0
-        fnorm = torch.linalg.norm(fk)[None]
-        if is_accel:
-            host = torch.cat([fnorm, (F @ F.T).reshape(-1), F @ fk]).cpu().numpy()
-        else:
-            host = fnorm.cpu().numpy()
+        host = gram_read(fk, F, fk, mesh) if is_accel else gram_read(fk, mesh=mesh)
         fnorm_h = host[0]
         if fnorm_h < dt.type(1e-14):  # tiny: keep x
             x2 = xk

@@ -55,12 +55,33 @@ def masked_gram_alpha(G, c, nhist, reg=0.0):
     return np.where(live, alpha, 0.0)
 
 
-def gram_ls_alpha(F, fk, nhist, reg=0.0):
+def gram_read(v, F=None, fk=None, mesh=None) -> np.ndarray:
+    """[||v||, (F F^T).ravel(), F fk] on the host in one read (without F:
+    [||v||]; without v: no norm).  On a row mesh (the vectors hold the
+    rank's slabs) the local squared norm, Gram matrix and F fk are summed
+    over the ranks in one all-reduce, and the norm's square root is taken
+    after the sum."""
+    parts = [] if F is None else [(F @ F.T).reshape(-1), F @ fk]
+    if mesh is None:
+        if v is not None:
+            parts.insert(0, torch.linalg.norm(v)[None])
+        return torch.cat(parts).cpu().numpy()
+    if v is not None:
+        parts.insert(0, torch.dot(v, v)[None])
+    host = mesh.allreduce_sum(torch.cat(parts)).cpu().numpy()
+    if v is not None:
+        host[0] = np.sqrt(host[0])
+    return host
+
+
+def gram_ls_alpha(F, fk, nhist, reg=0.0, mesh=None):
     """alpha = argmin ||fk + F^T alpha|| over the last ``nhist`` rows of F
-    (porotpu's function on tensors): G and c on F's device, the solve on
-    the host, alpha back on F's device."""
-    G = (F @ F.T).cpu().numpy()
-    c = (F @ fk).cpu().numpy()
+    (porotpu's function on tensors): G and c on F's device (on a mesh
+    summed over the ranks), the solve on the host, alpha back on F's
+    device."""
+    m = F.shape[0]
+    host = gram_read(None, F, fk, mesh)
+    G, c = host[: m * m].reshape(m, m), host[m * m :]
     alpha = masked_gram_alpha(G, c, int(nhist), reg)
     return torch.from_numpy(alpha).to(F.device)
 
