@@ -680,8 +680,6 @@ class Poromechanics(AbstractPhysics):
             )
         mesh = self.row_mesh
         accel = int(p.get("inner accel order", 0))
-        if mesh is not None and accel > 0:
-            raise NotImplementedError("inner accel order on a row mesh is ROADMAP M9.2")
         restart = int(p.get("gmres restart", min(50, maxiter)))
         # "solver chunk": ceil(maxiter/chunk) warm-started calls of a
         # chunk-maxiter solve — identical to one long gmres solve only when

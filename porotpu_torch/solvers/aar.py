@@ -63,9 +63,7 @@ def aar(
     if M is None:
         M = lambda r: r  # noqa: E731
     m = max(order, 1)
-    if mesh is not None and pc_accel_order > 0:
-        raise NotImplementedError("Anderson acceleration on a row mesh is ROADMAP M9.2")
-    acc = AndersonAccelerator(pc_accel_order) if pc_accel_order > 0 else None
+    acc = AndersonAccelerator(pc_accel_order, mesh=mesh) if pc_accel_order > 0 else None
     ast = acc.init(n, b.dtype, b.device) if acc else None
 
     f_unprec = b - A(x0)

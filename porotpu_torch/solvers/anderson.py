@@ -18,7 +18,8 @@ the staged ring (one row more than the window: it holds both the kept
 and the pushed window) and c, reads the three back in one host sync, and
 keeps the staged rings only if the pair was pushed.  One sync a step,
 none on the first; the mixed or the plain output is then chosen on the
-host, so each is exactly its branch's value.
+host, so each is exactly its branch's value.  On a row mesh the three
+are summed over the ranks in that sync's one all-reduce (``gram_read``).
 """
 
 from __future__ import annotations
@@ -98,9 +99,10 @@ class AndersonAccelerator:
     With order == 0 this is a pass-through (x = g(x)).
     """
 
-    def __init__(self, order: int, reg: float = 0.0):
+    def __init__(self, order: int, reg: float = 0.0, mesh=None):
         self.order = max(int(order), 0)
         self.reg = reg
+        self.mesh = mesh  # a row mesh: the state holds the rank's slabs
 
     def init(self, n: int, dtype=torch.float32, device="cpu") -> AndersonState:
         m = max(self.order, 1)
@@ -122,9 +124,7 @@ class AndersonAccelerator:
             Xs = torch.cat([X2, state.prev_dx[None]])
             Fs = torch.cat([F2, df[None]])
             m = Fs.shape[0] - 1
-            host = torch.cat(
-                [torch.linalg.norm(df)[None], (Fs @ Fs.T).reshape(-1), Fs @ fk]
-            ).cpu().numpy()
+            host = gram_read(df, Fs, fk, self.mesh)
             Gs = host[1 : 1 + (m + 1) ** 2].reshape(m + 1, m + 1)
             cs = host[1 + (m + 1) ** 2 :]
             if host[0] >= 1e-12:

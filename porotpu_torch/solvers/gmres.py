@@ -17,7 +17,8 @@ residual, reconstructed lazily once the 2-norm bound admits convergence
 
 With ``mesh`` (a row mesh: b, x and the basis hold the rank's slabs)
 each norm is one all-reduce and each CGS2 pass one all-reduce of the
-local ``Vk @ w``; the Hessenberg problem is replicated on every rank.
+local ``Vk @ w``; the Hessenberg problem is replicated on every rank, as
+is the Anderson step's Gram solve (one all-reduce a step).
 
 ``pc_accel_order`` Anderson-mixes the PC output of every iteration
 (the reference's "inner accel order", lib/Preconditioner.py:248-249)
@@ -59,8 +60,6 @@ def _fieldwise_check(fw: FieldwiseTest, r, atol, rtol):
 
 def _gmres(A, b, x0, M, restart, rtol, atol, maxiter, flexible, fieldwise, divtol,
            pc_accel_order, mesh=None):
-    if mesh is not None and pc_accel_order > 0:
-        raise NotImplementedError("Anderson acceleration on a row mesh is ROADMAP M9.2")
     norm = torch.linalg.norm if mesh is None else mesh.norm
     reduce = (lambda t: t) if mesh is None else mesh.allreduce_sum  # noqa: E731
     if x0 is None:
@@ -80,7 +79,7 @@ def _gmres(A, b, x0, M, restart, rtol, atol, maxiter, flexible, fieldwise, divto
         b0max = dt.type(torch.max(fieldwise.b0_norms).item())
         fw_tol = np.maximum(dt.type(atol), dt.type(rtol) * b0max)
         fw_tol = fw_tol * np.sqrt(dt.type(n_glob))
-    acc = AndersonAccelerator(pc_accel_order) if pc_accel_order > 0 else None
+    acc = AndersonAccelerator(pc_accel_order, mesh=mesh) if pc_accel_order > 0 else None
     ast = acc.init(n, b.dtype, b.device) if acc else None
 
     def cycle(x0c, it0):

@@ -256,6 +256,8 @@ PARALLEL_SOLVES = {
         "pc type": "diagonal 3-way", "inner pc type": "lu", "solver rtol": 1e-8,
         "solver atol": 1e-12, "solver maxiter": 400}, True, (2, 4)),
     "swelling_aar": (["--solver-type", "aar"], 3, {}, False, (2, 4)),
+    "swelling_inexact_accel1": (["--petsc-options", "petsc-options-inexact", "--solver-type",
+                                 "aar", "--inner-accel-order", "1"], 4, {}, False, (2, 4)),
     "swelling_cg_maxiter20": (["--solver-type", "cg"], 3, {"solver maxiter": 20}, False,
                               (2, 4)),
     "swelling_cg_4_chunks": (["--solver-type", "cg"], 3, {
