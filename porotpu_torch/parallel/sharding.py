@@ -345,14 +345,15 @@ def _shard_inner(solver, mesh: RowMesh, fields, memo: dict):
     if id(solver) in memo:
         return memo[id(solver)]
     k = solver.kind
-    if k == "fgmres+fs":
-        raise NotImplementedError(
-            "the quasi-exact fgmres+fs fluid-pressure solve on a mesh is ROADMAP M9.2"
-        )
     payload = {name: mod for name, mod in solver.mods.items()}
     for name, buf in solver.named_buffers(recurse=False):
         payload[name] = buf
-    if k in ("jacobi", "chebyshev", "cg"):
+    if k == "fgmres+fs":
+        # the fp FieldMatrix and its Schur fieldsplit, each over the fields
+        # (nf, npp); the inner FGMRES reduces over the ranks
+        payload["A"] = shard_operator(payload["A"], mesh, memo)
+        payload["fs"] = shard_operator(payload["fs"], mesh, memo)
+    elif k in ("jacobi", "chebyshev", "cg"):
         if "A" in payload:
             payload["A"] = shard_ell(payload["A"], mesh, True, memo)
         if "dinv" in payload:

@@ -14,8 +14,9 @@ card).
 
 On a row mesh (``parallel.sharding``) ``mesh`` and ``fields`` (the
 block's local field sizes) are set: the CG kinds reduce their dot
-products over the ranks, and ``lu`` gathers its input field by field for
-the replicated inverse and keeps its slabs of the product.
+products over the ranks, ``fgmres+fs`` its CGS2 passes, norms and stop
+test, and ``lu`` gathers its input field by field for the replicated
+inverse and keeps its slabs of the product.
 
 ``remap_inner_iters`` applies ``inner iters`` to a restored solver
 cache's PC; ``set_inner_monitor`` turns on the per-field inner monitors
@@ -166,7 +167,7 @@ class InnerSolver(nn.Module):
             # stop is decided on the host each iteration, as the outer solve's
             res = fgmres(
                 self.mods["A"].matvec, b, M=self.mods["fs"], rtol=1e-12, atol=0.0,
-                maxiter=self.iters, restart=self.iters,
+                maxiter=self.iters, restart=self.iters, mesh=self.mesh,
             )
             return res.x
         # plus-diag: y = S_md^-1 b + w_visc diag^-1 b (precond/schur.py dcc)

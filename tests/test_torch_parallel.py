@@ -229,8 +229,11 @@ def test_every_solver_configuration_builds_on_a_mesh():
     q = swelling_driver.setup(["-N", "2", "--petsc-options",
                                os.path.join(REPO, "petsc-options-exact-iterative"),
                                "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="M9.2"):
-        q.create_solver(SlabMesh(0, 1))
+    q.create_solver(SlabMesh(0, 1))
+    fp = q.pc.solve_fp
+    assert fp.kind == "fgmres+fs" and fp.mesh is not None
+    assert type(fp.mods["A"]).__name__ == "FieldMatrix"
+    assert fp.mods["fs"].solve_f.mesh is not None
     with pytest.raises(ValueError, match="pad multiple"):
         parallel_problem("swelling_3way_lu").create_solver(SlabMesh(0, 3))
 

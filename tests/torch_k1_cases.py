@@ -258,6 +258,8 @@ PARALLEL_SOLVES = {
     "swelling_aar": (["--solver-type", "aar"], 3, {}, False, (2, 4)),
     "swelling_inexact_accel1": (["--petsc-options", "petsc-options-inexact", "--solver-type",
                                  "aar", "--inner-accel-order", "1"], 4, {}, False, (2, 4)),
+    "swelling_qexact": (["--petsc-options", "petsc-options-exact-iterative"], 2, {}, False,
+                        (2, 4)),
     "swelling_cg_maxiter20": (["--solver-type", "cg"], 3, {"solver maxiter": 20}, False,
                               (2, 4)),
     "swelling_cg_4_chunks": (["--solver-type", "cg"], 3, {
