@@ -26,8 +26,9 @@ own.  With no mesh nothing here runs.
 (several ranks sharing one card) stages every message through the host.
 ``COLLECTIVES`` counts the collectives by (op, length), as
 ``dia_kernel.COUNTS`` counts launches: ``exchange`` one point-to-point
-message a direction of a halo product, ``allreduce`` and ``all_gather``
-(its length that of the gathered vector).
+message a direction of a halo product, ``host_exchange`` those of them
+sent to a rank on another host (a mesh over ``n_hosts``), ``allreduce``
+and ``all_gather`` (its length that of the gathered vector).
 """
 
 from __future__ import annotations
@@ -50,9 +51,13 @@ def reset_collectives():
 
 
 class RowMesh:
-    """A 1-D row partition over the ranks of a process group."""
+    """A 1-D row partition over the ranks of a process group.  With
+    ``n_hosts`` H the ranks are H host-major blocks of W / H (``solver_mesh``
+    checks the layout): the partition is the same, and the exchanges
+    between two blocks are also counted as crossing a host."""
 
-    def __init__(self, group, device: torch.device, owns_group: bool = False):
+    def __init__(self, group, device: torch.device, owns_group: bool = False,
+                 n_hosts: int = 1):
         self.group = group
         self.rank = dist.get_rank(group)
         self.world = dist.get_world_size(group)
@@ -62,9 +67,17 @@ class RowMesh:
         # gloo takes host tensors point to point: stage a card's messages
         self.staged = self.backend == "gloo" and self.device.type == "cuda"
         self.owns_group = owns_group
+        self.n_hosts = int(n_hosts)
+        self.per_host = self.world // self.n_hosts
 
     def __repr__(self):
-        return f"RowMesh(rank {self.rank} of {self.world}, {self.backend}, {self.device})"
+        return (f"RowMesh(rank {self.rank} of {self.world}, {self.n_hosts} host(s), "
+                f"{self.backend}, {self.device})")
+
+    def _count_send(self, peer, n):
+        COLLECTIVES["exchange", n] += 1
+        if peer is not None and peer // self.per_host != self.rank // self.per_host:
+            COLLECTIVES["host_exchange", n] += 1
 
     def _host(self, t):
         return t.cpu() if self.staged else t
@@ -84,13 +97,13 @@ class RowMesh:
         left, right = self.rank - 1, self.rank + 1
         ops = []
         if to_left.numel():
-            COLLECTIVES["exchange", to_left.numel()] += 1
+            self._count_send(left if left >= 0 else None, to_left.numel())
             if left >= 0:
                 ops.append(dist.P2POp(dist.isend, sl, self.ranks[left], self.group))
             if right < self.world:
                 ops.append(dist.P2POp(dist.irecv, rr, self.ranks[right], self.group))
         if to_right.numel():
-            COLLECTIVES["exchange", to_right.numel()] += 1
+            self._count_send(right if right < self.world else None, to_right.numel())
             if right < self.world:
                 ops.append(dist.P2POp(dist.isend, sr, self.ranks[right], self.group))
             if left >= 0:
@@ -169,9 +182,40 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def host_id(host=None) -> str:
+    """This rank's host: ``host`` if given, else torchrun's GROUP_RANK (the
+    node's rank), else the host name."""
+    if host is not None:
+        return str(host)
+    if "GROUP_RANK" in os.environ:
+        return "node " + os.environ["GROUP_RANK"]
+    return socket.gethostname()
+
+
+def check_host_major(hosts, n_hosts: int):
+    """Raise ValueError unless the ranks' hosts (in rank order) allow
+    ``n_hosts`` host-major blocks: W divisible by H and, when the ranks span
+    more than one host, the ranks of block h, [h W/H, (h+1) W/H), all on one
+    host (porotpu :72-90, its "not process-major" check).  Ranks all on one
+    host are accepted, as porotpu accepts one process."""
+    world = len(hosts)
+    if world % n_hosts:
+        raise ValueError(f"solver_mesh: {world} ranks do not divide into {n_hosts} hosts")
+    if len(set(hosts)) == 1:
+        return
+    per = world // n_hosts
+    blocks = [list(hosts[h * per : (h + 1) * per]) for h in range(n_hosts)]
+    if not all(len(set(b)) == 1 for b in blocks):
+        raise ValueError(
+            "solver_mesh: the ranks are not host-major; each block of "
+            f"{per} consecutive ranks must lie on one host (got hosts {blocks})"
+        )
+
+
 def solver_mesh(world: int | None = None, device="cuda", *, rank: int | None = None,
                 init_method: str | None = None, backend: str | None = None,
-                timeout: float = TIMEOUT_S, n_hosts: int | None = None) -> RowMesh:
+                timeout: float = TIMEOUT_S, n_hosts: int | None = None,
+                host=None) -> RowMesh:
     """The row mesh over the default process group (porotpu :52).
 
     Joins the default group if it exists, else makes it: ``rank`` and
@@ -182,9 +226,17 @@ def solver_mesh(world: int | None = None, device="cuda", *, rank: int | None = N
     lets ranks share one card (their messages pass through the host).
     NCCL that fails to initialise raises, and never gives way to gloo.
     ``device="cuda"`` picks ``cuda:<LOCAL_RANK>``.  Every collective
-    fails after ``timeout`` seconds instead of hanging."""
-    if n_hosts is not None and n_hosts > 1:
-        raise NotImplementedError("solver_mesh(n_hosts=...): a mesh over hosts is ROADMAP M9.2")
+    fails after ``timeout`` seconds instead of hanging.
+
+    ``n_hosts`` H: the ranks must be host-major (``check_host_major``),
+    each rank's host from ``host`` (for tests), torchrun's GROUP_RANK or
+    the host name, gathered from every rank.  The row partition stays
+    1-D in rank order, so each host owns one contiguous slab of every
+    field and only the exchanges between the last rank of a host and the
+    first of the next cross hosts (``COLLECTIVES["host_exchange", n]``)."""
+    n_hosts = 1 if n_hosts is None else int(n_hosts)
+    if n_hosts < 1:
+        raise ValueError(f"solver_mesh: n_hosts must be at least 1, got {n_hosts}")
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -219,7 +271,16 @@ def solver_mesh(world: int | None = None, device="cuda", *, rank: int | None = N
     elif world is not None and world != dist.get_world_size():
         raise ValueError(f"solver_mesh: asked for {world} ranks, the group has "
                          f"{dist.get_world_size()}")
-    mesh = RowMesh(dist.group.WORLD, device, owns_group=owns)
+    if n_hosts > 1:
+        hosts = [None] * dist.get_world_size()
+        dist.all_gather_object(hosts, host_id(host))
+        try:
+            check_host_major(hosts, n_hosts)
+        except ValueError:
+            if owns:
+                dist.destroy_process_group()
+            raise
+    mesh = RowMesh(dist.group.WORLD, device, owns_group=owns, n_hosts=n_hosts)
     if mesh.backend != backend:
         raise ValueError(f"solver_mesh: the group runs {mesh.backend}, not {backend}")
     mesh.barrier()

@@ -285,6 +285,32 @@ def test_outer_cg_reduces_over_the_ranks(ranks, W):
     assert got["x_rel"] < 1e-8
 
 
+def test_two_host_mesh_solves_as_the_row_mesh(ranks):
+    """The four ranks as two hosts (ranks 0-1, 2-3): the same 1-D partition,
+    so the solve equals the 1-D mesh's bit for bit, and only the pair of
+    ranks (1, 2) sends across the host boundary, one message a halo
+    product each way (porotpu's tests/test_parallel.py:95-150)."""
+    from torch_k1_cases import HOSTS_CASE
+
+    for rank in ranks:
+        flat, got = rank["4"]["solves"][HOSTS_CASE], rank["hosts"]
+        assert got["iterations"] == flat["iterations"] and got["x"] == flat["x"]
+    crossing = [r["rank"] for r in ranks if r["hosts"]["host_exchanges"]]
+    assert crossing == [1, 2]
+    assert ranks[1]["hosts"]["host_exchanges"] == ranks[2]["hosts"]["host_exchanges"]
+    # each crossing rank sends one of its two messages a halo product across
+    assert 0 < 2 * ranks[1]["hosts"]["host_exchanges"] == ranks[1]["hosts"]["exchanges"]
+
+
+def test_host_layouts_that_raise(ranks):
+    """An interleaved host layout (hosts 0 1 0 1) is not host-major, and four
+    ranks do not divide into three hosts: ValueError on every rank."""
+    for rank in ranks:
+        raised = rank["hosts"]["raises"]
+        assert "not host-major" in raised["interleaved"]
+        assert "do not divide into 3 hosts" in raised["three hosts"]
+
+
 def test_ell_case_stores_ell(ranks):
     assert ranks[0]["4"]["solves"]["swelling_3way_lu_ell"]["ell"] > 0
 

@@ -445,9 +445,43 @@ def _rank_cases(mesh, rng):
     return out
 
 
+# the solve a mesh over two hosts repeats (rank order: hosts 0 0 1 1)
+HOSTS_CASE = "swelling_3way_lu"
+
+
+def _host_cases(rank):
+    """The group as two hosts of two ranks: HOSTS_CASE's solve and its
+    exchanges, all and host-crossing; then the layouts that raise."""
+    import torch
+
+    from porotpu_torch.parallel import sharding
+
+    out = {}
+    mesh = sharding.solver_mesh(PARALLEL_WORLD, "cpu", n_hosts=2, host=f"host{rank // 2}")
+    q = parallel_problem(HOSTS_CASE)
+    q.create_solver(mesh)
+    q.first_timestep = False
+    sharding.reset_collectives()
+    with torch.inference_mode():
+        out["iterations"] = q.solve_time_step(q.t0 + q.parameters["dt"])
+    out["x"] = q.unpadded_solution().tolist()
+    out["exchanges"] = sum(n for (op, _), n in sharding.COLLECTIVES.items() if op == "exchange")
+    out["host_exchanges"] = sum(n for (op, _), n in sharding.COLLECTIVES.items()
+                                if op == "host_exchange")
+    out["raises"] = {}
+    for label, kw in (("interleaved", dict(n_hosts=2, host=f"host{rank % 2}")),
+                      ("three hosts", dict(n_hosts=3, host=f"host{rank}"))):
+        try:
+            sharding.solver_mesh(PARALLEL_WORLD, "cpu", **kw)
+        except ValueError as e:
+            out["raises"][label] = str(e)
+    return out
+
+
 def parallel_rank(rank, init_method, out_path):
-    """One rank of the test group: the cases on the whole group (4 ranks)
-    and on its half (2 ranks), written as JSON to ``out_path``."""
+    """One rank of the test group: the cases on the whole group (4 ranks),
+    on its half (2 ranks) and on the group as two hosts, written as JSON
+    to ``out_path``."""
     import torch
 
     torch.set_num_threads(1)
@@ -463,6 +497,7 @@ def parallel_rank(rank, init_method, out_path):
         for mesh in (mesh2, mesh4):
             # one seed on every rank: each slab is of the same whole vector
             out[str(mesh.world)] = _rank_cases(mesh, np.random.default_rng(mesh.world))
+        out["hosts"] = _host_cases(rank)
         out["foreign"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "porotpu"))
     finally:
         mesh4.close()
