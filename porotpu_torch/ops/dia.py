@@ -23,9 +23,15 @@ its rows and its ``dist`` tag says how a product communicates
 - ``("halo", mesh)``: the embedded space is the row space and the halo,
   ``hl = max(0, -min off)`` left and ``hr = max(off, 0)`` right, fits one
   slab.  The matvec receives ``hl`` entries from the left neighbour and
-  ``hr`` from the right one in one exchange and makes one K1 launch on
-  the window ``[from_left | x_loc | from_right]``, offsets shifted by
-  ``+hl``; the transpose makes one K2 launch over the window of
+  ``hr`` from the right one in one exchange.  It starts the exchange,
+  makes the slab's K1 launch on ``x_loc`` alone (offsets unshifted: the
+  interior rows ``[hl, nloc - hr)`` read only the slab) while the
+  messages fly, then waits and recomputes the ``hl`` top and ``hr``
+  bottom rows with two small K1 launches on the received halos
+  (porotpu's ``sweep_split``).  With no interior (``nloc <= hl + hr``)
+  or one rank it waits first and makes one K1 launch on the window
+  ``[from_left | x_loc | from_right]``, offsets shifted by ``+hl``.  The
+  transpose makes one K2 launch over the window of
   ``hl + nloc + hr`` columns, then sends its two overflows to the
   neighbours and adds theirs in.  Embedded blocks (``col_emb``) read a
   replicated input (an all-gathered field, or an AMG coarse vector): the
@@ -40,7 +46,8 @@ its rows and its ``dist`` tag says how a product communicates
 ``col_slab`` says whether the column space (the matvec's input, the
 transpose's output) is a field in slabs or replicated.  A rank's local
 compute is a plain function of (slab, window, shift): ``halo_matvec_local``,
-``halo_rmatvec_local`` and ``halo_fold``.  A ``Transposed`` block's tag
+``halo_interior_local``, ``halo_fixup_local``, ``halo_rmatvec_local`` and
+``halo_fold``.  A ``Transposed`` block's tag
 is its inner DIA's; ``Dense`` and ELL take ``("gather", mesh)``.
 """
 
@@ -87,6 +94,32 @@ def halo_matvec_local(data, shift, shift_dev, window):
     return dia_kernel.mv(data, shift, shift_dev, window, data.shape[1])
 
 
+def halo_interior_local(data, offsets, offsets_dev, x_loc):
+    """The split halo matvec's first launch, made while the exchange flies:
+    K1 on the slab alone, offsets unshifted.  K1 reads zeros outside the
+    slab, so the rows [hl, nloc - hr) are right and the hl top and hr
+    bottom rows wait for ``halo_fixup_local``."""
+    return dia_kernel.mv(data, offsets, offsets_dev, x_loc, data.shape[1])
+
+
+def halo_fixup_local(y, top, bottom, shift, shift_dev, x_loc, from_left, from_right):
+    """Overwrite the ``hl`` top and ``hr`` bottom rows of ``y`` (the interior
+    launch's output) from the received halos: K1 on ``top`` (data's first
+    hl columns) over [from_left | x_loc[:hl + hr]] and on ``bottom`` (its
+    last hr columns) over [x_loc[-(hl + hr):] | from_right], the offsets
+    shifted by hl.  Each takes the diagonal groups of the slab's launch,
+    so every row is summed in the order of the unsplit product."""
+    nloc = y.shape[0]
+    hl, hr = from_left.shape[0], from_right.shape[0]
+    if hl:
+        xt = torch.cat([from_left, x_loc[: hl + hr]])
+        y[:hl] = dia_kernel.mv(top, shift, shift_dev, xt, hl, groups_of=nloc)
+    if hr:
+        xb = torch.cat([x_loc[nloc - hl - hr :], from_right])
+        y[nloc - hr :] = dia_kernel.mv(bottom, shift, shift_dev, xb, hr, groups_of=nloc)
+    return y
+
+
 def halo_rmatvec_local(data, shift, shift_dev, x, hl, hr):
     """One rank's halo transpose before the fold: K2 over the window of
     ``hl + nloc + hr`` columns, the offsets shifted by ``hl``."""
@@ -125,6 +158,7 @@ class DIA(nn.Module):
 
     dist = None  # None, ("halo", mesh) or ("gather", mesh)
     col_slab = True  # on a mesh: the column space is a field in slabs
+    split = False  # on a mesh: the halo matvec runs its interior under the exchange
 
     def __init__(self, data, offsets, nrows, ncols, col_emb=None, ne=None, dataT=None):
         super().__init__()
@@ -162,6 +196,14 @@ class DIA(nn.Module):
             shift = mesh.rank * nloc
         self.shift = tuple(o + shift for o in self.offsets)
         self.register_buffer("shift_dev", torch.tensor(self.shift, dtype=torch.int32))
+        # the interior/boundary split: the slab's first hl and last hr
+        # columns for the fix-ups (porotpu's sweep_split, :366-405)
+        self.split = (kind == "halo" and self.col_emb is None and mesh.world > 1
+                      and nloc - sum(self.halo) > 0)
+        if self.split:
+            hl, hr = self.halo
+            self.register_buffer("data_top", self.data[:, :hl].contiguous())
+            self.register_buffer("data_bottom", self.data[:, nloc - hr :].contiguous())
         if kind == "halo" and self.col_emb is not None:
             hl, hr = self.halo
             src, dst = _window_scatter(self.col_emb, mesh.rank * nloc - hl, hl + nloc + hr)
@@ -247,9 +289,15 @@ class DIA(nn.Module):
         MESH_PRODUCTS[kind, "matvec", self.col_emb is not None] += 1
         if kind == "halo" and self.col_emb is None:
             hl, hr = self.halo
-            from_left, from_right = mesh.exchange(x[:hr], x[nloc - hl :])
-            return halo_matvec_local(self.data, self.shift, self.shift_dev,
-                                     torch.cat([from_left, x, from_right]))
+            pending = mesh.exchange_start(x[:hr], x[nloc - hl :])
+            if not self.split:
+                from_left, from_right = pending.wait()
+                return halo_matvec_local(self.data, self.shift, self.shift_dev,
+                                         torch.cat([from_left, x, from_right]))
+            y = halo_interior_local(self.data, self.offsets, self.offsets_dev, x)
+            from_left, from_right = pending.wait()
+            return halo_fixup_local(y, self.data_top, self.data_bottom, self.shift,
+                                    self.shift_dev, x, from_left, from_right)
         xs = mesh.all_gather(x) if self.col_slab else x
         if kind == "halo":
             hl, hr = self.halo

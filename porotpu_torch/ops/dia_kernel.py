@@ -275,6 +275,20 @@ def launch_plan(nd: int, n_out: int, n_in: int, dtype: torch.dtype) -> LaunchPla
     )
 
 
+@functools.lru_cache(maxsize=1024)
+def launch_plan_like(nd: int, n_out: int, n_in: int, dtype: torch.dtype,
+                     like_rows: int) -> LaunchPlan:
+    """``launch_plan`` for K1 on (n_out, n_in) with the diagonal groups of a
+    launch over ``like_rows`` outputs: its warps and cluster, so that each
+    row is summed in that launch's order (a halo fix-up of a few rows
+    against its slab's launch).  The shapes alone still decide the tiles
+    and the vector path."""
+    own, like = launch_plan(nd, n_out, n_in, dtype), launch_plan(nd, like_rows, n_in, dtype)
+    return dataclasses.replace(own, warps=like.warps, cluster=like.cluster,
+                               blocks=own.blocks // own.cluster * like.cluster,
+                               smem_bytes=like.smem_bytes)
+
+
 def _launch_planned(name, fn, data, offsets, x, ne, y, plan):
     """Launch K1 or K2 by ``plan``: 16-byte chunks when the plan allows
     them and x is 16-byte aligned (data must be)."""
@@ -292,12 +306,14 @@ def _launch_planned(name, fn, data, offsets, x, ne, y, plan):
 # -- K1 ----------------------------------------------------------------------
 
 
-def dia_mv(data: torch.Tensor, offsets: torch.Tensor, xe: torch.Tensor) -> torch.Tensor:
+def dia_mv(data: torch.Tensor, offsets: torch.Tensor, xe: torch.Tensor,
+           groups_of: int | None = None) -> torch.Tensor:
     """Launch K1: y (nrows,) with nrows = data.shape[1].
 
     data: (nd, nrows) float32/float64 CUDA tensor, 16-byte aligned;
     offsets: (nd,) int32 on the same device; xe: (ne,) of data's dtype, any
-    ne >= 0.
+    ne >= 0.  ``groups_of``: split the diagonals as a launch over that
+    many rows does (``launch_plan_like``).
     """
     nd, nrows = _check("dia_mv", data, offsets, xe, (torch.float32, torch.float64))
     y = torch.empty(nrows, dtype=data.dtype, device=data.device)
@@ -308,14 +324,25 @@ def dia_mv(data: torch.Tensor, offsets: torch.Tensor, xe: torch.Tensor) -> torch
     lib = _load()
     fn = lib.porotpu_dia_mv_f32 if data.dtype == torch.float32 else lib.porotpu_dia_mv_f64
     ne = xe.shape[0]
-    return _launch_planned("dia_mv", fn, data, offsets, xe, ne, y,
-                           launch_plan(nd, nrows, ne, data.dtype))
+    plan = (launch_plan(nd, nrows, ne, data.dtype) if groups_of is None
+            else launch_plan_like(nd, nrows, ne, data.dtype, int(groups_of)))
+    return _launch_planned("dia_mv", fn, data, offsets, xe, ne, y, plan)
+
+
+# the rows of a plain product are summed over a width padded to a multiple
+# of this: torch's CPU sum over the diagonals then takes every column in
+# its 4-vector blocks (at most 4 x 16 values), one order for every row
+SUM_WIDTH = 64
 
 
 def dia_mv_ref(data: torch.Tensor, offsets, xe: torch.Tensor, nrows: int) -> torch.Tensor:
     """Plain PyTorch version of K1: a gather of shifted windows of the
     zero-padded input, summed over the diagonals.  The padding is
-    porotpu's ``DIA._pads`` (porotpu/ops/dia.py:294-299).
+    porotpu's ``DIA._pads`` (porotpu/ops/dia.py:294-299).  The products
+    are summed over a width of whole ``SUM_WIDTH`` blocks, so that on the
+    CPU a row's sum does not depend on how many rows are computed with
+    it: a few rows (a halo fix-up) equal those rows of the whole product
+    bit for bit.
 
     ``offsets``: sequence of ints (or an int tensor) of length nd.
     """
@@ -327,14 +354,17 @@ def dia_mv_ref(data: torch.Tensor, offsets, xe: torch.Tensor, nrows: int) -> tor
     hi = max(0, nrows - 1 + int(offs.max()) - (ne - 1))
     xpad = F.pad(xe, (lo, hi))
     windows = xpad.unfold(0, nrows, 1)  # windows[s] = xpad[s : s + nrows]
-    return (data * windows[(offs + lo).to(xe.device)]).sum(0)
+    prod = data * windows[(offs + lo).to(xe.device)]
+    pad = -nrows % SUM_WIDTH
+    return (F.pad(prod, (0, pad)) if pad else prod).sum(0)[:nrows]
 
 
-def mv(data, offsets, offsets_dev, xe, nrows):
+def mv(data, offsets, offsets_dev, xe, nrows, groups_of=None):
     """Banded product dispatched by device: K1 for a CUDA tensor, its plain
-    version for a CPU tensor."""
+    version for a CPU tensor.  ``groups_of``: K1's diagonal groups as a
+    launch over that many rows (``dia_mv``)."""
     if xe.is_cuda:
-        return dia_mv(data, offsets_dev, xe)
+        return dia_mv(data, offsets_dev, xe, groups_of)
     COUNTS["plain"] += 1
     return dia_mv_ref(data, offsets, xe, nrows)
 

@@ -50,6 +50,26 @@ def reset_collectives():
     COLLECTIVES.clear()
 
 
+class PendingExchange:
+    """A halo exchange in flight (``RowMesh.exchange_start``)."""
+
+    def __init__(self, works, from_left, from_right, staged_left=None, staged_right=None):
+        self.works = works
+        self.from_left, self.from_right = from_left, from_right
+        self.staged = (staged_left, staged_right)
+
+    def wait(self):
+        """(from_left, from_right), once the messages have arrived."""
+        for work in self.works:
+            work.wait()
+        self.works = []
+        if self.staged[0] is not None:
+            self.from_left.copy_(self.staged[0])
+            self.from_right.copy_(self.staged[1])
+            self.staged = (None, None)
+        return self.from_left, self.from_right
+
+
 class RowMesh:
     """A 1-D row partition over the ranks of a process group.  With
     ``n_hosts`` H the ranks are H host-major blocks of W / H (``solver_mesh``
@@ -88,10 +108,19 @@ class RowMesh:
         from_right): the left neighbour's ``to_right`` and the right
         neighbour's ``to_left``, zeros at the edges (the global zero
         padding).  Each rank passes the same lengths."""
+        return self.exchange_start(to_left, to_right).wait()
+
+    def exchange_start(self, to_left: torch.Tensor, to_right: torch.Tensor) -> "PendingExchange":
+        """``exchange`` without waiting: posts the sends and receives and
+        returns the pending exchange, whose ``wait()`` gives (from_left,
+        from_right).  Under NCCL the messages run on NCCL's stream and
+        ``wait`` makes the current stream wait for them, so work launched
+        in between overlaps them on the card; gloo staged through the host
+        has copied its sends to the host (a sync) before it returns."""
         from_left = to_right.new_zeros(to_right.shape)
         from_right = to_left.new_zeros(to_left.shape)
         if self.world == 1:
-            return from_left, from_right
+            return PendingExchange([], from_left, from_right)
         sl, sr = self._host(to_left).contiguous(), self._host(to_right).contiguous()
         rl, rr = self._host(from_left), self._host(from_right)
         left, right = self.rank - 1, self.rank + 1
@@ -108,13 +137,10 @@ class RowMesh:
                 ops.append(dist.P2POp(dist.isend, sr, self.ranks[right], self.group))
             if left >= 0:
                 ops.append(dist.P2POp(dist.irecv, rl, self.ranks[left], self.group))
-        if ops:
-            for work in dist.batch_isend_irecv(ops):
-                work.wait()
+        works = dist.batch_isend_irecv(ops) if ops else []
         if self.staged:
-            from_left.copy_(rl)
-            from_right.copy_(rr)
-        return from_left, from_right
+            return PendingExchange(works, from_left, from_right, rl, rr)
+        return PendingExchange(works, from_left, from_right)
 
     def _allreduce(self, t, op, name):
         COLLECTIVES[name, t.numel()] += 1

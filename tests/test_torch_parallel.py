@@ -101,9 +101,7 @@ def _square(n, offsets, seed):
 @pytest.mark.parametrize("W", WORLDS)
 def test_halo_matvec_is_the_unsharded_product_bit_for_bit(W):
     """K1 (plain) on each rank's window [from_left | x_loc | from_right],
-    offsets shifted by hl: the slabs of the unsharded matvec, bit for bit
-    (slabs of whole 16-value blocks: torch's sum over the diagonals takes
-    another order on a ragged tail)."""
+    offsets shifted by hl: the slabs of the unsharded matvec, bit for bit."""
     D, _ = _square(128, (-9, -3, -1, 0, 2, 5, 11), 1)
     x = torch.from_numpy(np.random.default_rng(2).normal(size=128))
     want = D.matvec(x)
@@ -116,6 +114,101 @@ def test_halo_matvec_is_the_unsharded_product_bit_for_bit(W):
         window = xpad[r * nloc : r * nloc + hl + nloc + hr]
         y = halo_matvec_local(sh.data, sh.shift, sh.shift_dev, window)
         assert torch.equal(y, want[r * nloc : (r + 1) * nloc])
+
+
+class ExchangeStub(SlabMesh):
+    """A rank of a mesh whose exchange hands back its neighbours' halos of a
+    whole vector ``x`` (zeros with ``zero``), recording in ``events`` when
+    the exchange starts and when it is waited on."""
+
+    def __init__(self, rank, world, x, events, zero=False):
+        super().__init__(rank, world)
+        self.x, self.events, self.zero = x, events, zero
+
+    def exchange_start(self, to_left, to_right):
+        self.events.append("start")
+        hl, hr, nloc = to_right.shape[0], to_left.shape[0], self.x.shape[0] // self.world
+        xpad = torch.cat([self.x.new_zeros(hl), self.x, self.x.new_zeros(hr)])
+        r0 = self.rank * nloc
+        halos = (xpad[r0 : r0 + hl], xpad[hl + r0 + nloc : hl + r0 + nloc + hr])
+        if self.zero:
+            halos = tuple(torch.zeros_like(h) for h in halos)
+        events = self.events
+
+        class Pending:
+            def wait(self):
+                events.append("wait")
+                return halos
+
+        return Pending()
+
+
+SPLIT_CASES = [(128, W) for W in WORLDS] + [(120, 4)]  # 120 / 4: a slab of 30, ragged
+
+
+@pytest.mark.parametrize("n, W", SPLIT_CASES)
+def test_halo_matvec_launches_its_interior_before_the_wait(n, W, monkeypatch):
+    """The split halo matvec (porotpu's sweep_split): the exchange starts,
+    the slab's K1 launch runs on x_loc alone, then the wait, then one small
+    K1 launch for the hl top rows and one for the hr bottom rows.  A slab
+    no wider than its halos, or one rank, waits first and launches once."""
+    D, _ = _square(n, (-9, -3, -1, 0, 2, 5, 11), 1)
+    x = torch.from_numpy(np.random.default_rng(2).normal(size=n))
+    events, mv = [], dia_kernel.mv
+
+    def recorded(data, offsets, offsets_dev, xe, nrows, groups_of=None):
+        events.append(("K1", nrows, groups_of))
+        return mv(data, offsets, offsets_dev, xe, nrows, groups_of)
+
+    monkeypatch.setattr(dia_kernel, "mv", recorded)
+    nloc = n // W
+    for r in range(W):
+        events.clear()
+        sh = sharding.shard_ell(D, ExchangeStub(r, W, x, events))
+        assert sh.split
+        sh.matvec(x[r * nloc : (r + 1) * nloc])
+        assert events == ["start", ("K1", nloc, None), "wait", ("K1", 9, nloc),
+                          ("K1", 11, nloc)]
+    for world, size in ((1, n), (W, 16 * W)):
+        D1, _ = _square(size, (-9, -3, -1, 0, 2, 5, 11), 1)
+        x1 = torch.from_numpy(np.random.default_rng(2).normal(size=size))
+        events.clear()
+        sh = sharding.shard_ell(D1, ExchangeStub(0, world, x1, events))
+        assert not sh.split
+        sh.matvec(x1[: size // world])
+        assert events == ["start", "wait", ("K1", size // world, None)]
+
+
+@pytest.mark.parametrize("n, W", SPLIT_CASES)
+def test_split_interior_rows_do_not_read_the_halos(n, W):
+    """With the received halos zeroed, the interior rows [hl, nloc - hr) of
+    the split product are unchanged and its boundary rows are not."""
+    D, _ = _square(n, (-9, -3, -1, 0, 2, 5, 11), 1)
+    x = torch.from_numpy(np.random.default_rng(2).normal(size=n))
+    nloc, hl, hr = n // W, 9, 11
+    for r in range(W):
+        x_loc = x[r * nloc : (r + 1) * nloc]
+        y = sharding.shard_ell(D, ExchangeStub(r, W, x, [])).matvec(x_loc)
+        y0 = sharding.shard_ell(D, ExchangeStub(r, W, x, [], zero=True)).matvec(x_loc)
+        assert torch.equal(y[hl : nloc - hr], y0[hl : nloc - hr])
+        if r > 0:
+            assert not torch.equal(y[:hl], y0[:hl])
+        if r < W - 1:
+            assert not torch.equal(y[nloc - hr :], y0[nloc - hr :])
+
+
+@pytest.mark.parametrize("n, W", SPLIT_CASES)
+def test_split_halo_matvec_is_the_unsharded_product_bit_for_bit(n, W):
+    """The split product, interior launch and fix-ups (plain K1), on each
+    rank: the slabs of the unsharded matvec bit for bit, on a ragged slab
+    too (the plain version sums a row alike at any width)."""
+    D, _ = _square(n, (-9, -3, -1, 0, 2, 5, 11), 1)
+    x = torch.from_numpy(np.random.default_rng(2).normal(size=n))
+    want, nloc = D.matvec(x), n // W
+    for r in range(W):
+        sh = sharding.shard_ell(D, ExchangeStub(r, W, x, []))
+        assert torch.equal(sh.matvec(x[r * nloc : (r + 1) * nloc]),
+                           want[r * nloc : (r + 1) * nloc])
 
 
 @pytest.mark.parametrize("W", WORLDS)
