@@ -383,6 +383,7 @@ def shard_ell(E, mesh: RowMesh, col_slab: bool = True, memo: dict | None = None)
         # prolongator itself, banded over the fine rows with negated offsets
         inner = E.inner
         if inner.col_emb is not None:
+            # no solver tree of the drivers holds one (tools/shard_walk.py)
             raise NotImplementedError(
                 "shard_ell: an embedded Transposed operator into a replicated space "
                 "(ROADMAP M9.2)"

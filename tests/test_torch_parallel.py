@@ -331,6 +331,18 @@ def test_every_solver_configuration_builds_on_a_mesh():
         parallel_problem("swelling_3way_lu").create_solver(SlabMesh(0, 3))
 
 
+def test_every_driver_tree_shards(capsys):
+    """The grid's 12 configurations and the five drivers' defaults at N=2
+    shard without processes (``tools/shard_walk.py``); none holds an
+    embedded Transposed into a replicated space, the layout shard_ell
+    does not port."""
+    from porotpu_torch.tools import shard_walk
+
+    assert shard_walk.main(["--ns", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "17 trees, 0 raised" in out and "embedded" not in out
+
+
 # -- the gloo group -------------------------------------------------------------
 
 
