@@ -278,6 +278,20 @@ GRID_CELLS = (("swelling-2way-inexact-160", 438085, 17),)
 # phase 14: the sharded runs, (world, backend, dtype)
 MULTICHIP_RUNS = ((1, "nccl", "float64"), (1, "nccl", "float32"),
                   (2, "gloo", "float64"), (2, "gloo", "float32"))
+# phase 14: the other solve paths on the mesh, the swelling driver's
+# command lines in f64: label, flags, N under NCCL at W=1, parameter
+# overrides, porotpu's count at that N (phase 11's and 8's oracles; None:
+# the unsharded port's count alone) and the phase 8 or 11 run whose
+# unsharded solve W=1 reuses; gloo at W=2 runs them at MULTICHIP_GLOO_N
+MULTICHIP_DRIVER_RUNS = (
+    ("a aar", ["--solver-type", "aar"], 80, {}, 32, "swelling_aar"),
+    ("b accel1", ["--petsc-options", "petsc-options-inexact", "--inner-accel-order", "1"], 80,
+     {}, 16, "swelling_inexact_accel1"),
+    ("c qexact", ["--petsc-options", "petsc-options-exact-iterative"], 80, {}, 7,
+     "swelling_qexact"),
+    ("d cg", ["--solver-type", "cg"], 40, {"solver maxiter": 20}, None, None),
+)
+MULTICHIP_GLOO_N = 20
 
 
 def check(cond, msg):
@@ -787,11 +801,14 @@ class Tee:
 
 
 def outer_phase(dev, torch, dia_kernel, ell_products, inner_iters, FieldwiseTest, mb, peaks,
-                rng, mismatches):
-    """Phase 11: OUTER_RUNS, their held sets, then OUTER_CPU_RUNS."""
+                rng, mismatches, references=None, reused=()):
+    """Phase 11: OUTER_RUNS, their held sets, then OUTER_CPU_RUNS.  The
+    unsharded solves of the runs in ``reused`` go into ``references``
+    for phase 14."""
     import numpy as np
 
     from porotpu_torch.drivers import fluid_pressure, solid, swelling
+    from porotpu_torch.tools import multichip
 
     drivers = {"swelling": swelling, "solid": solid, "fluid_pressure": fluid_pressure}
     held = []
@@ -812,6 +829,9 @@ def outer_phase(dev, torch, dia_kernel, ell_products, inner_iters, FieldwiseTest
                       f"{label}: {len(steps)} monitor lines for {out['iterations']} iterations")
             else:
                 check(not steps, f"{label}: AAR ran; the options file's gmres shadows it")
+            if label in reused:
+                references[label] = multichip.reference_of(out["problem"], out["fp_iters"],
+                                                          out["counts"])
         else:
             out = subsystem_run(label, drivers[drv], _argv(argv), dofs, oracle, resid, k2, dev,
                                 torch, dia_kernel, ell_products, mb, peaks)
@@ -1068,9 +1088,11 @@ def grid_phase(tmp):
     print(robustness.summarize(outdir, os.path.join(ROOT, "output")), flush=True)
 
 
-def multichip_phase(dev):
+def multichip_phase(dev, references):
     """14: the row-sharded solve, NCCL at W=1 here, gloo at W=2 in two
-    spawned ranks sharing the card, f64 and f32."""
+    spawned ranks sharing the card, f64 and f32; then the other solve
+    paths (MULTICHIP_DRIVER_RUNS), W=1 reusing ``references`` (phases 8
+    and 11's unsharded solves of the same command lines)."""
     from porotpu_torch.tools import multichip
 
     for world, backend, dtype in MULTICHIP_RUNS:
@@ -1093,6 +1115,49 @@ def multichip_phase(dev):
         if world > 1:
             check(out["exchanges_per_halo_product"] == 2,
                   f"{label}: {out['exchanges_per_halo_product']} exchanges a halo product")
+
+    for name, flags, n1, params, oracle, reuse in MULTICHIP_DRIVER_RUNS:
+        argv = _argv(flags)
+        sets = [f"--parameter={k}={v}" for k, v in params.items()]
+        for world, backend, N in ((1, "nccl", n1), (2, "gloo", MULTICHIP_GLOO_N)):
+            label = f"14{name} W={world} {backend} N={N}"
+            print(f"-- {label}: python -m porotpu_torch.tools.multichip -N {N} --reps 0 "
+                  + " ".join(flags + sets)
+                  + (f" --spawn {world} --backend {backend}" if world > 1 else ""), flush=True)
+            t0 = time.perf_counter()
+            if world == 1:
+                out = multichip.run(1, "float64", device=dev, backend=backend, N=N, reps=0,
+                                    driver_args=argv, parameters=params,
+                                    reference=references.pop(reuse, None))
+            else:
+                out = multichip.spawn(world, ["--backend", backend, "-N", str(N), "--reps", "0",
+                                              *argv, *sets], timeout=900)
+            print(multichip.report(out), flush=True)
+            print(f"  {label}: {time.perf_counter() - t0:.1f} s in all", flush=True)
+            check(out["world"] == world and out["backend"] == backend
+                  and out["device"].startswith("cuda"), f"{label}: ran as {out['world']} "
+                  f"{out['backend']} on {out['device']}")
+            check(not out["failures"], f"{label}: " + "; ".join(out["failures"]))
+            # (d) stops at its maxiter unconverged, as the unsharded solve
+            check(out["converged"] or oracle is None, f"{label}: the solve did not converge")
+            check(out["K1"] > 0, f"{label}: K1 {out['K1']}")
+            check(out["plain"] == 0, f"{label}: {out['plain']} banded products took a plain version")
+            if world == 1 and oracle is not None:
+                check(out["iterations"] == oracle,
+                      f"{label}: {out['iterations']} iterations, porotpu took {oracle}")
+            if world > 1:
+                check(out["exchanges_per_halo_product"] == 2,
+                      f"{label}: {out['exchanges_per_halo_product']} exchanges a halo product")
+            if "exact-iterative" in " ".join(flags):
+                check(len(out["fp_iters"]) == out["iterations"]
+                      and len(out["fp_iters_unsharded"]) == out["iterations_unsharded"],
+                      f"{label}: inner FGMRES iterations {out['fp_iters']} for "
+                      f"{out['iterations']} outer, unsharded {out['fp_iters_unsharded']}")
+            del out
+            gc.collect()
+            import torch
+
+            torch.cuda.empty_cache()
 
 
 def main():
@@ -1362,6 +1427,11 @@ def main():
 
     inner.fgmres = counted_fgmres
     drivers_by_name = {"swelling": swelling, "footing": footing}
+    from porotpu_torch.tools import multichip
+
+    # phase 14 reuses these runs' unsharded solves
+    REUSED = {reuse for *_, reuse in MULTICHIP_DRIVER_RUNS if reuse}
+    references = {}
     held, mismatches = [], []
     for label, drv, argv, dofs, oracle, k2 in DRIVER_RUNS:
         out = driver_run(label, drivers_by_name[drv], argv, dofs, oracle, k2, dev, torch,
@@ -1389,6 +1459,9 @@ def main():
                       f"{label}: inner FGMRES iterations {out['fp_iters']}")
         check(pc.three_way == ("3way" in label), f"{label}: three_way is {pc.three_way}")
         del pc
+        if label in REUSED:
+            references[label] = multichip.reference_of(out["problem"], out["fp_iters"],
+                                                      out["counts"])
         held += [(label, *h) for h in out["held"]]
         if out["iterations"] != oracle:
             mismatches.append(f"{label}: {out['iterations']} iterations, porotpu took {oracle}")
@@ -1425,7 +1498,7 @@ def main():
 
     # -- 11. outer cg, AAR, Anderson acceleration, the subsystem drivers -------
     outer_phase(dev, torch, dia_kernel, ELL_PRODUCTS, inner_iters, FieldwiseTest, mb, peaks, rng,
-                mismatches)
+                mismatches, references, REUSED)
     check(not mismatches, "; ".join(mismatches))
 
     # -- 12. the solver cache, export and resume, inner monitors --------------
@@ -1448,7 +1521,8 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 14. the row-sharded solve -------------------------------------------
-    multichip_phase(dev)
+    multichip_phase(dev, references)
+    del references
     check_imports()
 
     k1, k2, k3 = record["dia_mv", "L0_A", "f32"], record["dia_rmv", "L0_P", "f64"], mbrec["k3"]

@@ -37,7 +37,8 @@ its rows and its ``dist`` tag says how a product communicates
   replicated input (an all-gathered field, or an AMG coarse vector): the
   matvec scatters the window's range of it, the transpose takes the
   window's range of its output at ``emb`` and sums it over the ranks, so
-  neither exchanges halos;
+  neither exchanges halos; a block whose band is its diagonal exchanges
+  nothing either (counted as ``local``);
 - ``("gather", mesh)``, porotpu's ``("gspmd",)``: the slab is narrower
   than the halo or the embedded space is not the row space.  The input
   is all-gathered and K1 or K2 run on the slab with offsets shifted by
@@ -86,6 +87,10 @@ def transpose_layout(data: torch.Tensor, offsets, ne: int) -> torch.Tensor:
 # Products on a row mesh by (dist kind, product, embedded): a halo block
 # that is not embedded makes one exchange a direction with a halo
 MESH_PRODUCTS = collections.Counter()
+# Whether a halo block sharded from now on splits its matvec into the
+# interior launch under the exchange and the boundary fix-ups (off: wait,
+# then one launch on the window, to measure what the split buys)
+HALO_SPLIT = True
 
 
 def halo_matvec_local(data, shift, shift_dev, window):
@@ -198,8 +203,8 @@ class DIA(nn.Module):
         self.register_buffer("shift_dev", torch.tensor(self.shift, dtype=torch.int32))
         # the interior/boundary split: the slab's first hl and last hr
         # columns for the fix-ups (porotpu's sweep_split, :366-405)
-        self.split = (kind == "halo" and self.col_emb is None and mesh.world > 1
-                      and nloc - sum(self.halo) > 0)
+        self.split = (HALO_SPLIT and kind == "halo" and self.col_emb is None
+                      and mesh.world > 1 and nloc - sum(self.halo) > 0)
         if self.split:
             hl, hr = self.halo
             self.register_buffer("data_top", self.data[:, :hl].contiguous())
@@ -283,9 +288,16 @@ class DIA(nn.Module):
             return y[self.col_emb]
         return y[: self.ncols]
 
+    def _local(self):
+        """A halo block whose band is its diagonal: nothing to exchange."""
+        return self.dist[0] == "halo" and self.col_emb is None and not any(self.halo)
+
     def _mesh_matvec(self, x):
         kind, mesh = self.dist
         nloc = self.data.shape[1]
+        if self._local():
+            MESH_PRODUCTS["local", "matvec", False] += 1
+            return halo_matvec_local(self.data, self.shift, self.shift_dev, x)
         MESH_PRODUCTS[kind, "matvec", self.col_emb is not None] += 1
         if kind == "halo" and self.col_emb is None:
             hl, hr = self.halo
@@ -313,6 +325,9 @@ class DIA(nn.Module):
 
     def _mesh_rmatvec(self, x):
         kind, mesh = self.dist
+        if self._local():
+            MESH_PRODUCTS["local", "rmatvec", False] += 1
+            return halo_rmatvec_local(self.data, self.shift, self.shift_dev, x, 0, 0)
         MESH_PRODUCTS[kind, "rmatvec", self.col_emb is not None] += 1
         if kind == "halo":
             hl, hr = self.halo

@@ -4,11 +4,18 @@
     python -m porotpu_torch.tools.multichip --spawn 2 --backend gloo # two ranks sharing one card
     torchrun --nproc-per-node 4 -m porotpu_torch.tools.multichip     # NCCL, a rank a card
     python -m porotpu_torch.tools.multichip --spawn 4 --device cpu   # gloo on the host
+    python -m porotpu_torch.tools.multichip -N 80 --solver-type aar  # the swelling driver's problem
+    python -m porotpu_torch.tools.multichip -N 40 --solver-type cg --parameter "solver maxiter=20"
 
-The port's counterpart of ``__graft_entry__.py:dryrun_multichip``
+By default the port's counterpart of ``__graft_entry__.py:dryrun_multichip``
 (:54-160): swelling N=40 with the 3-way block preconditioner and inexact
 (hypre: cg+amg) inner solves, rtol 1e-5, atol 1e-6, maxiter 60, ``pad
-multiple`` the world size W, one step.  Every rank builds the host setup,
+multiple`` the world size W, one step.  Given any of the swelling
+driver's flags (``--petsc-options``, ``--solver-type``,
+``--inner-accel-order``, ``--pc-type``), the problem is the one that
+driver builds from ``-N`` and those flags (``drivers/swelling.py:setup``),
+with ``pad multiple`` W and the ``--parameter`` overrides: at W=1 the
+driver's own run, whose porotpu count is on record.  Every rank builds the host setup,
 keeps its slabs (``Poromechanics.create_solver(mesh)``) and solves; rank 0
 also solves the same padded problem unsharded.  Printed by rank 0: W, the
 backend, dofs, the iterations and convergence of both solves, the true
@@ -22,7 +29,15 @@ system-scale all-gather" rule, :121-155), as do a count that differs from
 the unsharded one, x off the unsharded x by more than ``X_RTOL`` and a
 missed guard.  The guard is the true residual's field-wise test of the
 gathered sharded x through the unsharded operator, so a wrong halo
-product cannot vouch for itself.  The last line is the result as JSON.
+product cannot vouch for itself; a solve that stops unconverged at its
+maxiter, as the unsharded one does (outer cg on the nonsymmetric system),
+prints the guard and is held to the count and x alone.  The inner
+FGMRES iterations of each ``fgmres+fs`` apply are recorded for both
+solves.  ``run(reference=...)`` takes the unsharded solve from a caller
+that already ran it (chip_smoke.py's driver phases).  ``--n-hosts H``
+makes the mesh host-major over H hosts and counts the exchanges that
+cross one; ``--no-split`` shards the halo blocks without the interior
+launch under the exchange.  The last line is the result as JSON.
 
 ``--spawn W`` starts W ranks as child processes of this one (a
 ``file://`` rendezvous in a temporary directory); under torchrun each
@@ -59,9 +74,76 @@ OVERRIDES = {
 X_RTOL = {"float64": 1e-8, "float32": 5e-3}
 
 
+def parse_parameters(items):
+    """``["solver maxiter=20", ...]`` -> {"solver maxiter": 20}: ints, then
+    floats, else strings."""
+    out = {}
+    for item in items or ():
+        key, sep, val = item.partition("=")
+        if not sep:
+            raise ValueError(f"--parameter {item!r}: expected KEY=VALUE")
+        for cast in (int, float, str):
+            try:
+                out[key.strip()] = cast(val.strip())
+                break
+            except ValueError:
+                continue
+    return out
+
+
+def build_problem(W, N, dtype, device, driver_args=None, parameters=None):
+    """The padded problem (``pad multiple`` W) on ``device``: dryrun's with
+    no driver flags, else the swelling driver's ``setup``."""
+    from porotpu_torch.drivers import swelling
+    from porotpu_torch.models import benchmarks
+
+    parameters = dict(parameters or {})
+    if not driver_args:
+        ov = dict(OVERRIDES, **{"pad multiple": W, "dtype": dtype}, **parameters)
+        return benchmarks.swelling(N, overrides=ov, device=device)
+    argv = ["-N", str(N), *driver_args, "--dtype", dtype, "--device", device.type]
+    return swelling.setup(argv, overrides={"pad multiple": W, **parameters})
+
+
+class inner_fgmres_counts:
+    """Record the iterations of each inner ``fgmres+fs`` apply while active."""
+
+    def __enter__(self):
+        from porotpu_torch.precond import inner
+
+        self.inner, self.fgmres, self.iters = inner, inner.fgmres, []
+
+        def counted(*args, **kwargs):
+            res = self.fgmres(*args, **kwargs)
+            self.iters.append(res.iters)
+            return res
+
+        inner.fgmres = counted
+        return self.iters
+
+    def __exit__(self, *exc):
+        self.inner.fgmres = self.fgmres
+
+
+def reference_of(problem, fp_iters=(), counts=None):
+    """The unsharded solve of a problem its caller solved one step of (the
+    count, x, and the operator and right-hand side the guard needs), for
+    ``run(reference=...)``."""
+    res = problem.last_result
+    counts = counts or {}
+    return {
+        "iterations": res.iters, "converged": bool(res.converged),
+        "x": problem.unpadded_solution(), "A": problem.A_dev, "b": problem.last_rhs,
+        "padded_sizes": problem.padded_sizes, "solve_s": problem.t_solve_total,
+        "K1": counts.get("dia_mv"), "K2": counts.get("dia_rmv"), "fp_iters": list(fp_iters),
+    }
+
+
 def _median_solve(problem, b, reps, torch):
     """(result of the last solve, median seconds) of ``reps`` solves of one
-    right-hand side from zero."""
+    right-hand side from zero; (None, None) for no solve."""
+    if reps <= 0:
+        return None, None
     times, res = [], None
     for _ in range(reps):
         if problem.device.type == "cuda":
@@ -78,10 +160,12 @@ def collectives_summary(counts, products, padded_sizes):
     """Exchanges, all-reduces and all-gathers of one solve from
     ``sharding.COLLECTIVES`` and ``dia.MESH_PRODUCTS``."""
     exch = sum(n for (op, _), n in counts.items() if op == "exchange")
+    host_exch = sum(n for (op, _), n in counts.items() if op == "host_exchange")
     halo = sum(n for (kind, _, emb), n in products.items() if kind == "halo" and not emb)
     ag = [length for (op, length), n in counts.items() if op == "all_gather" for _ in range(n)]
     return {
         "exchanges": exch,
+        "host_exchanges": host_exch,
         "halo_products": halo,
         "exchanges_per_halo_product": exch / halo if halo else 0.0,
         "mesh_products": {f"{k}/{p}{'/emb' if e else ''}": n for (k, p, e), n in products.items()},
@@ -93,28 +177,30 @@ def collectives_summary(counts, products, padded_sizes):
 
 
 def run(world=None, dtype="float64", device="cuda", backend=None, rank=None,
-        init_method=None, N=PROBLEM_N, reps=3, timeout=None):
+        init_method=None, N=PROBLEM_N, reps=3, timeout=None, driver_args=None,
+        parameters=None, n_hosts=None, split=True, reference=None):
     """One rank's part: the sharded solve and, on rank 0, the unsharded one
-    and the checks.  Returns the result dict on rank 0, None elsewhere.
-    Makes the process group and destroys it at the end."""
+    (or ``reference``, from ``reference_of``) and the checks.  Returns the
+    result dict on rank 0, None elsewhere.  Makes the process group and
+    destroys it at the end."""
     import numpy as np
     import torch
 
-    from porotpu_torch.models import benchmarks
     from porotpu_torch.ops import dia, dia_kernel
     from porotpu_torch.parallel import sharding
     from porotpu_torch.solvers.convergence import FieldwiseTest
 
     kw = {} if timeout is None else {"timeout": timeout}
     mesh = sharding.solver_mesh(world, device, rank=rank, init_method=init_method,
-                                backend=backend, **kw)
+                                backend=backend, n_hosts=n_hosts, **kw)
+    split_before = dia.HALO_SPLIT
     try:
         W = mesh.world
         if mesh.device.type == "cpu":
             # ranks on one host share its cores
             torch.set_num_threads(max(1, (os.cpu_count() or 1) // W))
-        ov = dict(OVERRIDES, **{"pad multiple": W, "dtype": dtype})
-        problem = benchmarks.swelling(N, overrides=ov, device=mesh.device)
+        problem = build_problem(W, N, dtype, mesh.device, driver_args, parameters)
+        dia.HALO_SPLIT = split
         problem.create_solver(mesh)
         problem.first_timestep = False
         t = problem.t0 + problem.parameters["dt"]
@@ -122,9 +208,12 @@ def run(world=None, dtype="float64", device="cuda", backend=None, rank=None,
         dia_kernel.reset_counts()
         sharding.reset_collectives()
         dia.MESH_PRODUCTS.clear()
-        res = problem._solve(b, torch.zeros_like(b))
+        t0 = time.perf_counter()
+        with inner_fgmres_counts() as fp_iters:
+            res = problem._solve(b, torch.zeros_like(b))
         if mesh.device.type == "cuda":
             torch.cuda.synchronize(mesh.device)
+        t_counted = time.perf_counter() - t0
         counts = dict(dia_kernel.COUNTS)
         coll = collectives_summary(sharding.COLLECTIVES, dia.MESH_PRODUCTS,
                                    problem.padded_sizes)
@@ -132,39 +221,61 @@ def run(world=None, dtype="float64", device="cuda", backend=None, rank=None,
         problem.sol = res.x
         x = problem.unpadded_solution()
         xg = sharding.gather_vector(res.x, mesh, problem.local_sizes)
-        _, t_sharded = _median_solve(problem, b, reps, torch)
+        # reps 0: the counted solve's own time
+        t_sharded = _median_solve(problem, b, reps, torch)[1] or t_counted
         out = None
         if mesh.rank == 0:
-            ref = benchmarks.swelling(N, overrides=ov, device=mesh.device)
-            ref.create_solver()
-            ref.first_timestep = False
-            b1 = ref.get_rhs(t)
-            dia_kernel.reset_counts()
-            res1 = ref._solve(b1, torch.zeros_like(b1))
-            counts1 = dict(dia_kernel.COUNTS)
-            ref.sol = res1.x
-            x1 = ref.unpadded_solution()
+            if reference is None:
+                ref = build_problem(W, N, dtype, mesh.device, driver_args, parameters)
+                ref.create_solver()
+                ref.first_timestep = False
+                ref.last_rhs = ref.get_rhs(t)
+                dia_kernel.reset_counts()
+                t0 = time.perf_counter()
+                with inner_fgmres_counts() as fp_iters1:
+                    ref.last_result = ref._solve(ref.last_rhs, torch.zeros_like(ref.last_rhs))
+                if mesh.device.type == "cuda":
+                    torch.cuda.synchronize(mesh.device)
+                t_counted1 = time.perf_counter() - t0
+                counts1 = dict(dia_kernel.COUNTS)
+                ref.sol = ref.last_result.x
+                ref.t_solve_total = _median_solve(ref, ref.last_rhs, reps, torch)[1] or t_counted1
+                reference = reference_of(ref, fp_iters1, counts1)
+                reference["reused"] = False
+            b1, A1 = reference["b"], reference["A"]
+            x1 = np.asarray(reference["x"])
             # the true residual of the sharded x through the unsharded operator
-            fw = FieldwiseTest.from_sizes(ref.padded_sizes, b1)
-            ea, er = (v.item() for v in fw.errors(b1 - ref.A_dev.matvec(xg)))
-            p = ref.parameters
-            guard = ea < float(p["solver atol"]) or er < float(p["solver rtol"])
-            _, t_one = _median_solve(ref, b1, reps, torch)
+            fw = FieldwiseTest.from_sizes(reference["padded_sizes"], b1)
+            with torch.inference_mode():
+                ea, er = (v.item() for v in fw.errors(b1 - A1.matvec(xg.to(b1.device))))
+            p = problem.parameters
+            atol, rtol = float(p["solver atol"]), float(p["solver rtol"])
+            odb = p.get("options db")
+            if odb is not None:
+                g = odb.prefix_items("global")
+                atol = float(g.get("ksp_atol") or atol)
+                rtol = float(g.get("ksp_rtol") or rtol)
+            guard = ea < atol or er < rtol
             x_rel = float(np.linalg.norm(x - x1) / np.linalg.norm(x1))
             out = {
                 "world": W, "backend": mesh.backend, "device": str(mesh.device),
                 "card": torch.cuda.get_device_name(mesh.device)
                 if mesh.device.type == "cuda" else "cpu",
                 "dtype": dtype, "N": N, "dofs": problem.W.num_dofs,
+                "problem": " ".join(driver_args) if driver_args else "dryrun_multichip",
+                "parameters": dict(parameters or {}),
+                "n_hosts": mesh.n_hosts, "split": split,
                 "padded": list(problem.padded_sizes),
                 "iterations": res.iters, "converged": bool(res.converged),
-                "iterations_unsharded": res1.iters,
-                "converged_unsharded": bool(res1.converged),
+                "iterations_unsharded": reference["iterations"],
+                "converged_unsharded": reference["converged"],
+                "reference_reused": reference.get("reused", True),
                 "guard_abs": ea, "guard_rel": er, "guard_met": bool(guard),
                 "x_rel": x_rel, "x_rtol": X_RTOL[dtype],
-                "solve_s": t_sharded, "solve_s_unsharded": t_one,
+                "solve_s": t_sharded, "solve_s_unsharded": reference["solve_s"],
                 "K1": counts["dia_mv"], "K2": counts["dia_rmv"], "plain": counts["plain"],
-                "K1_unsharded": counts1["dia_mv"], "K2_unsharded": counts1["dia_rmv"],
+                "K1_unsharded": reference["K1"], "K2_unsharded": reference["K2"],
+                "fp_iters": list(fp_iters), "fp_iters_unsharded": reference["fp_iters"],
                 **coll,
                 "foreign": sorted(m for m in sys.modules
                                   if m.split(".")[0] in ("jax", "porotpu")),
@@ -175,18 +286,21 @@ def run(world=None, dtype="float64", device="cuda", backend=None, rank=None,
         mesh.barrier()
         return out
     finally:
+        dia.HALO_SPLIT = split_before
         mesh.close()
 
 
 def check(out):
     """The run's failures, as messages (none: it passed)."""
     fails = []
-    if out["iterations"] != out["iterations_unsharded"] or not out["converged"]:
+    if (out["iterations"] != out["iterations_unsharded"]
+            or out["converged"] != out["converged_unsharded"]):
         fails.append(f"{out['iterations']} iterations (converged {out['converged']}), "
-                     f"unsharded {out['iterations_unsharded']}")
+                     f"unsharded {out['iterations_unsharded']} (converged "
+                     f"{out['converged_unsharded']})")
     if not out["x_rel"] <= out["x_rtol"]:
         fails.append(f"x off the unsharded x by {out['x_rel']:.3e} > {out['x_rtol']:g}")
-    if not out["guard_met"]:
+    if out["converged"] and not out["guard_met"]:
         fails.append(f"true-residual guard missed (abs {out['guard_abs']:.3e}, "
                      f"rel {out['guard_rel']:.3e})")
     if out["foreign"]:
@@ -199,23 +313,31 @@ def check(out):
 
 def report(out) -> str:
     """Rank 0's lines for a result."""
+    reused = " (reused: the caller's solve, its counts over the whole step)" \
+        if out["reference_reused"] else ""
     lines = [
-        f"multichip: W={out['world']} {out['backend']} on {out['device']} ({out['card']}), "
-        f"{out['dtype']}, swelling N={out['N']}, dofs {out['dofs']}, padded {out['padded']}",
+        f"multichip: W={out['world']} ({out['n_hosts']} host(s)) {out['backend']} on "
+        f"{out['device']} ({out['card']}), {out['dtype']}, swelling N={out['N']} "
+        f"[{out['problem']}] {out['parameters'] or ''}, dofs {out['dofs']}, padded "
+        f"{out['padded']}, halo split {out['split']}",
         f"  sharded {out['iterations']} iterations (converged {out['converged']}), unsharded "
-        f"{out['iterations_unsharded']} (converged {out['converged_unsharded']}); guard "
-        f"(unsharded operator) abs {out['guard_abs']:.3e} rel {out['guard_rel']:.3e} met "
-        f"{out['guard_met']}; |x - x_unsharded| / |x_unsharded| = {out['x_rel']:.3e} "
+        f"{out['iterations_unsharded']} (converged {out['converged_unsharded']}){reused}; "
+        f"guard (unsharded operator) abs {out['guard_abs']:.3e} rel {out['guard_rel']:.3e} "
+        f"met {out['guard_met']}; |x - x_unsharded| / |x_unsharded| = {out['x_rel']:.3e} "
         f"(limit {out['x_rtol']:g})",
         f"  median solve: sharded {out['solve_s']:.4f} s, unsharded {out['solve_s_unsharded']:.4f}"
         f" s (ratio {out['solve_s'] / out['solve_s_unsharded']:.2f})",
         f"  launches: K1 {out['K1']}, K2 {out['K2']}, plain {out['plain']} (unsharded: K1 "
         f"{out['K1_unsharded']}, K2 {out['K2_unsharded']})",
-        f"  collectives a solve: {out['exchanges']} exchanges over {out['halo_products']} halo "
-        f"products ({out['exchanges_per_halo_product']:.2f} each), {out['allreduces']} "
+        f"  collectives a solve: {out['exchanges']} exchanges ({out['host_exchanges']} across "
+        f"hosts) over {out['halo_products']} halo products "
+        f"({out['exchanges_per_halo_product']:.2f} each), {out['allreduces']} "
         f"all-reduces, {out['all_gathers']} all-gathers (largest {out['all_gather_max']}, "
         f"largest field {out['field_max']}); products {out['mesh_products']}",
     ]
+    if out["fp_iters"] or out["fp_iters_unsharded"]:
+        lines.append(f"  inner fgmres+fs iterations an apply: sharded {out['fp_iters']}, "
+                     f"unsharded {out['fp_iters_unsharded']}")
     if out["failures"]:
         lines.append("  FAILED: " + "; ".join(out["failures"]))
     return "\n".join(lines)
@@ -262,6 +384,11 @@ def spawn(world, args_list, env=None, timeout=None):
             return json.load(f)
 
 
+# the swelling driver's flags the tool passes on
+DRIVER_FLAGS = ("--petsc-options", "--solver-type", "--inner-accel-order", "--pc-type",
+                "--pc-dtype")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--spawn", type=int, help="start this many ranks as child processes")
@@ -269,25 +396,45 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--backend", choices=("nccl", "gloo"))
     ap.add_argument("-N", type=int, default=PROBLEM_N)
-    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--reps", type=int, default=3,
+                    help="timed solves after the counted one (0: time the counted one)")
     ap.add_argument("--timeout", type=float, help="seconds a collective may wait")
+    ap.add_argument("--n-hosts", type=int, help="a host-major mesh over this many hosts")
+    ap.add_argument("--no-split", action="store_true",
+                    help="halo matvecs wait for the exchange before their one launch")
+    ap.add_argument("--parameter", action="append", default=[], metavar="KEY=VALUE",
+                    help="a parameter override, e.g. 'solver maxiter=20' (repeatable)")
+    for flag in DRIVER_FLAGS:
+        ap.add_argument(flag, help="the swelling driver's flag")
     ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--world", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--init", help=argparse.SUPPRESS)
     ap.add_argument("--result", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    common = ["--dtype", args.dtype, "-N", str(args.N), "--reps", str(args.reps)]
+    driver_args = []
+    for flag in DRIVER_FLAGS:
+        val = getattr(args, flag[2:].replace("-", "_"))
+        if val is not None:
+            driver_args += [flag, val]
+    common = ["--dtype", args.dtype, "-N", str(args.N), "--reps", str(args.reps), *driver_args]
+    for item in args.parameter:
+        common += ["--parameter", item]
     if args.device != "cuda":
         common += ["--device", args.device]
     if args.backend:
         common += ["--backend", args.backend]
     if args.timeout:
         common += ["--timeout", str(args.timeout)]
+    if args.n_hosts:
+        common += ["--n-hosts", str(args.n_hosts)]
+    if args.no_split:
+        common += ["--no-split"]
     if args.spawn:
         out = spawn(args.spawn, common)
     else:
         out = run(args.world, args.dtype, args.device, args.backend, args.rank, args.init,
-                  args.N, args.reps, args.timeout)
+                  args.N, args.reps, args.timeout, driver_args or None,
+                  parse_parameters(args.parameter), args.n_hosts, not args.no_split)
         if out is None:
             return 0
         if args.result:  # a spawned rank 0: the parent prints

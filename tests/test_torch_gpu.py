@@ -5,7 +5,8 @@ shapes; K1 and K2 also launch twice bitwise equal, take an unaligned
 input and refuse unaligned data.  The solid and fluid-pressure drivers at
 N=3 in f64 launch K1, take no plain version and match their CPU runs.
 A row mesh's local halo products (K1 on a rank's window, K2 over it,
-offsets shifted by the halo) match their plain versions.  ELL's transpose
+offsets shifted by the halo) match their plain versions, and the split
+halo matvec (interior launch, then the boundary fix-ups) the unsplit one.  ELL's transpose
 (a gather on its transposed layout) is bitwise repeatable on the card.
 
 Every test here needs a CUDA card and skips without one.  This file
@@ -247,6 +248,41 @@ def test_halo_local_products_on_the_card(W, dtype, tol, cuda_device):
         ref = dia_kernel.dia_rmv_ref(data, sh.shift, xl, hl + nloc + hr)
         assert acc.shape == (hl + nloc + hr,)
         assert ((acc - ref).abs().max() / ref.abs().max()).item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_split_halo_matvec_on_the_card(dtype, build, cuda_device, capsys):
+    """The split halo matvec (the interior K1 launch on x_loc alone, then
+    the hl top and hr bottom rows recomputed from the halos, with the slab
+    launch's diagonal groups) against the unsplit one (one K1 launch on the
+    window), on the bench's level-0 solid A (N=3 build, 233 bands) as one
+    rank's slab with a simulated halo of random values: within dtype
+    rounding; prints whether the two are bit for bit equal and their
+    largest difference."""
+    from porotpu_torch.ops.dia import halo_fixup_local, halo_interior_local, halo_matvec_local
+
+    A = build.pc.solve_s.mods["amg"].levels[0].A
+    assert isinstance(A, DIA) and len(A.offsets) == 233 and A.col_emb is None
+    offs, nloc = A.offsets, A.nrows
+    hl, hr = max(0, -min(offs)), max(0, max(offs))
+    assert nloc > hl + hr
+    shift = tuple(o + hl for o in offs)
+    rng = np.random.default_rng(23)
+    data = A.data.to(dtype=dtype, device=cuda_device)
+    window = torch.as_tensor(rng.normal(size=hl + nloc + hr), dtype=dtype, device=cuda_device)
+    from_left, x_loc, from_right = window[:hl], window[hl : hl + nloc], window[hl + nloc :]
+    dev = lambda t: torch.tensor(t, dtype=torch.int32, device=cuda_device)  # noqa: E731
+    unsplit = halo_matvec_local(data, shift, dev(shift), window)
+    y = halo_interior_local(data, offs, dev(offs), x_loc.contiguous())
+    split = halo_fixup_local(y, data[:, :hl].contiguous(), data[:, nloc - hr :].contiguous(),
+                             shift, dev(shift), x_loc, from_left, from_right)
+    diff = (split - unsplit).abs().max().item()
+    with capsys.disabled():
+        print(f"\nsplit vs unsplit halo matvec, {dtype}, level-0 A {nloc} rows, "
+              f"{len(offs)} bands, hl {hl}, hr {hr}: bit for bit {torch.equal(split, unsplit)}, "
+              f"max |diff| {diff:.3e} (max |y| {unsplit.abs().max().item():.3e})")
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert diff <= tol * unsplit.abs().max().item()
 
 
 def test_ell_transpose_on_the_card(cuda_device):
