@@ -23,12 +23,13 @@ the export of ``solution_fields``.
 
 On a row mesh (``create_solver(mesh)``, ``parallel.solver_mesh``) each
 rank builds the same host setup, keeps its field slabs of every operator
-and vector, and runs FGMRES with reductions over the ranks
-(porotpu/parallel/sharding.py).  The right-hand side is built whole on
-each rank and sliced; ``unpadded_solution`` and ``solution_fields``
-gather.  ``pad multiple`` must be a multiple of the world size.  The
-solver types aar and cg, ``inner accel order`` and the quasi-exact
-``fgmres+fs`` fp solve raise NotImplementedError on a mesh (ROADMAP M9.2).
+and vector, and runs the outer solve with reductions over the ranks
+(porotpu/parallel/sharding.py): every solver type (FGMRES, cg with its
+chunks, AAR), ``inner accel order``, every PC the drivers build, the
+quasi-exact ``fgmres+fs`` fp solve included.  The right-hand side is
+built whole on each rank and sliced; ``unpadded_solution`` and
+``solution_fields`` gather.  ``pad multiple`` must be a multiple of the
+world size.
 """
 
 from __future__ import annotations

@@ -15,7 +15,18 @@ the jitted solve.  PyTorch has no partitioner, so the port makes the same
   K2 on the rank's slab, the others gather their input (a field at most);
 - AMG levels >= 1, the dense coarse inverses and LU factors are
   replicated, porotpu's coarse-grid agglomeration (:209);
-- dot products and norms are one all-reduce each (``solvers/``).
+- dot products and norms are one all-reduce each (``solvers/``), and
+  AAR's and Anderson's squared norm, Gram matrix and F f one all-reduce
+  together; the host-side solves (Hessenberg, Gram) run on every rank
+  alike.
+
+Every solve path of the drivers runs on a mesh: FGMRES, cg and AAR as the
+outer solve, Anderson acceleration of the PC output, every inner kind
+and the quasi-exact ``fgmres+fs`` fp solve (its ``FieldMatrix`` and
+Schur fieldsplit sharded over the fields (nf, npp), its FGMRES reducing
+over the ranks).  The one layout ``shard_ell`` does not port, an
+embedded ``Transposed`` into a replicated space, is in no solver tree
+the drivers build (``tools/shard_walk.py``).
 
 Communication lives only in the operators' products and in the solvers'
 reductions.  Sharding slices the host-built modules before they move to
@@ -24,6 +35,11 @@ own.  With no mesh nothing here runs.
 
 ``RowMesh`` runs NCCL on the card and gloo on the CPU; gloo on the card
 (several ranks sharing one card) stages every message through the host.
+A halo exchange can be started and waited on later
+(``exchange_start``): the halo matvec launches its interior under it.
+``solver_mesh(n_hosts=H)`` checks that the ranks are host-major and
+keeps the 1-D partition, so only neighbours at a host boundary
+exchange across hosts.
 ``COLLECTIVES`` counts the collectives by (op, length), as
 ``dia_kernel.COUNTS`` counts launches: ``exchange`` one point-to-point
 message a direction of a halo product, ``host_exchange`` those of them

@@ -239,7 +239,8 @@ def import_checks():
 # -- the row mesh: one gloo group of four ranks for tests/test_torch_parallel.py
 
 # the full solves the group runs, as builder (a benchmarks function, or
-# the swelling driver's flags), N, overrides (pad multiple 4 added),
+# the swelling driver's flags), N, overrides (pad multiple 4 added;
+# "options": entries added to the options file's database),
 # whether the outer blocks and couplings store ELL, and the mesh sizes:
 # porotpu's tests/test_parallel.py:66-92 cases, the 3-way one with ELL
 # blocks (footing's ELL starts at N=10, and its solves make thousands of
@@ -258,8 +259,9 @@ PARALLEL_SOLVES = {
     "swelling_aar": (["--solver-type", "aar"], 3, {}, False, (2, 4)),
     "swelling_inexact_accel1": (["--petsc-options", "petsc-options-inexact", "--solver-type",
                                  "aar", "--inner-accel-order", "1"], 4, {}, False, (2, 4)),
-    "swelling_qexact": (["--petsc-options", "petsc-options-exact-iterative"], 2, {}, False,
-                        (2, 4)),
+    # tests/test_torch_qexact.py's apply: -fp_lu_fallback_iters 5
+    "swelling_qexact": (["--petsc-options", "petsc-options-exact-iterative"], 2, {
+        "options": {"fp_lu_fallback_iters": "5"}}, False, (2, 4)),
     "swelling_cg_maxiter20": (["--solver-type", "cg"], 3, {"solver maxiter": 20}, False,
                               (2, 4)),
     "swelling_cg_4_chunks": (["--solver-type", "cg"], 3, {
@@ -276,6 +278,7 @@ def parallel_problem(name, device="cpu", **more):
 
     builder, N, ov, ell, _ = PARALLEL_SOLVES[name]
     ov = dict(ov, **{"pad multiple": PARALLEL_WORLD}, **more)
+    options = ov.pop("options", {})
     if isinstance(builder, list):
         from porotpu_torch.drivers import swelling
 
@@ -285,6 +288,8 @@ def parallel_problem(name, device="cpu", **more):
         p = swelling.setup(["-N", str(N), *flags, "--device", device], overrides=ov)
         # the driver's flags are applied over the overrides: apply them again
         p.parameters.update(ov)
+        for key, val in options.items():
+            p.parameters["options db"].set(key, val)
     else:
         p = getattr(benchmarks, builder)(N, overrides=ov, device=device)
     if ell:
