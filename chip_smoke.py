@@ -180,7 +180,21 @@
    from the f64 one).  f32 K2 runs only on the sharded path (a sharded
    operator holds no dataT).  At W=2 each halo product
    makes 2 exchanges.  Printed: the collectives of a solve and the median
-   solve time sharded against unsharded.
+   solve time sharded against unsharded.  Then the other solve paths on
+   the mesh, the swelling driver's command lines in f64
+   (``MULTICHIP_DRIVER_RUNS``): (a) ``--solver-type aar``, (b)
+   ``petsc-options-inexact --inner-accel-order 1``, (c)
+   ``petsc-options-exact-iterative`` (the ``fgmres+fs`` fp solve) at N=80
+   and (d) ``--solver-type cg`` with ``solver maxiter`` 20 at N=40, over
+   NCCL at W=1 (the unsharded solve of (a)-(c) reused from phases 8 and
+   11), and all four over gloo at W=2 at N=20, two ranks each, the four
+   started together before the NCCL runs and waited on after them.  Each
+   must give the unsharded port's count (at W=1 porotpu's 32, 16 and 7;
+   (d) stops at 20 unconverged on both sides), x within 1e-8 relative,
+   the guard through the unsharded operator (for the converged runs),
+   K1 launched and no plain product, 2 exchanges a halo product at W=2,
+   and for (c) one inner FGMRES count an outer iteration, printed beside
+   the unsharded run's.
 
 Any failed check raises and the script exits non-zero.  It also exits
 non-zero without a CUDA device, and fails if jax or any module of porotpu
@@ -1116,48 +1130,84 @@ def multichip_phase(dev, references):
             check(out["exchanges_per_halo_product"] == 2,
                   f"{label}: {out['exchanges_per_halo_product']} exchanges a halo product")
 
+    # the gloo runs (host-bound: every message through the host) in two
+    # ranks each, all started now and waited on after the NCCL runs here
+    import concurrent.futures
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    runs, gloo = [], {}
+    pool = concurrent.futures.ThreadPoolExecutor(len(MULTICHIP_DRIVER_RUNS))
+    logs = tempfile.TemporaryDirectory()
     for name, flags, n1, params, oracle, reuse in MULTICHIP_DRIVER_RUNS:
         argv = _argv(flags)
         sets = [f"--parameter={k}={v}" for k, v in params.items()]
-        for world, backend, N in ((1, "nccl", n1), (2, "gloo", MULTICHIP_GLOO_N)):
-            label = f"14{name} W={world} {backend} N={N}"
-            print(f"-- {label}: python -m porotpu_torch.tools.multichip -N {N} --reps 0 "
-                  + " ".join(flags + sets)
-                  + (f" --spawn {world} --backend {backend}" if world > 1 else ""), flush=True)
+        runs.append((name, flags, sets, argv, n1, params, oracle, reuse))
+        log = open(os.path.join(logs.name, name.split()[0] + ".log"), "w+")
+
+        def gloo_run(argv=argv, sets=sets, log=log):
             t0 = time.perf_counter()
-            if world == 1:
-                out = multichip.run(1, "float64", device=dev, backend=backend, N=N, reps=0,
-                                    driver_args=argv, parameters=params,
-                                    reference=references.pop(reuse, None))
-            else:
-                out = multichip.spawn(world, ["--backend", backend, "-N", str(N), "--reps", "0",
-                                              *argv, *sets], timeout=900)
-            print(multichip.report(out), flush=True)
-            print(f"  {label}: {time.perf_counter() - t0:.1f} s in all", flush=True)
-            check(out["world"] == world and out["backend"] == backend
-                  and out["device"].startswith("cuda"), f"{label}: ran as {out['world']} "
-                  f"{out['backend']} on {out['device']}")
-            check(not out["failures"], f"{label}: " + "; ".join(out["failures"]))
-            # (d) stops at its maxiter unconverged, as the unsharded solve
-            check(out["converged"] or oracle is None, f"{label}: the solve did not converge")
-            check(out["K1"] > 0, f"{label}: K1 {out['K1']}")
-            check(out["plain"] == 0, f"{label}: {out['plain']} banded products took a plain version")
-            if world == 1 and oracle is not None:
-                check(out["iterations"] == oracle,
-                      f"{label}: {out['iterations']} iterations, porotpu took {oracle}")
-            if world > 1:
-                check(out["exchanges_per_halo_product"] == 2,
-                      f"{label}: {out['exchanges_per_halo_product']} exchanges a halo product")
-            if "exact-iterative" in " ".join(flags):
-                check(len(out["fp_iters"]) == out["iterations"]
-                      and len(out["fp_iters_unsharded"]) == out["iterations_unsharded"],
-                      f"{label}: inner FGMRES iterations {out['fp_iters']} for "
-                      f"{out['iterations']} outer, unsharded {out['fp_iters_unsharded']}")
+            out = multichip.spawn(2, ["--backend", "gloo", "-N", str(MULTICHIP_GLOO_N), "--reps",
+                                      "0", *argv, *sets], timeout=900, output=log)
+            return out, time.perf_counter() - t0
+
+        gloo[name] = (pool.submit(gloo_run), log)
+
+    def check_run(label, out, world, backend, flags, params, oracle):
+        print(multichip.report(out), flush=True)
+        check(out["world"] == world and out["backend"] == backend
+              and out["device"].startswith("cuda"), f"{label}: ran as {out['world']} "
+              f"{out['backend']} on {out['device']}")
+        check(not out["failures"], f"{label}: " + "; ".join(out["failures"]))
+        # (d) stops at its maxiter unconverged, as the unsharded solve
+        check(out["converged"] or oracle is None, f"{label}: the solve did not converge")
+        check(out["K1"] > 0, f"{label}: K1 {out['K1']}")
+        check(out["plain"] == 0, f"{label}: {out['plain']} banded products took a plain version")
+        if world == 1 and oracle is not None:
+            check(out["iterations"] == oracle,
+                  f"{label}: {out['iterations']} iterations, porotpu took {oracle}")
+        if world > 1:
+            check(out["exchanges_per_halo_product"] == 2,
+                  f"{label}: {out['exchanges_per_halo_product']} exchanges a halo product")
+        if "exact-iterative" in " ".join(flags):
+            check(len(out["fp_iters"]) == out["iterations"]
+                  and len(out["fp_iters_unsharded"]) == out["iterations_unsharded"],
+                  f"{label}: inner FGMRES iterations {out['fp_iters']} for "
+                  f"{out['iterations']} outer, unsharded {out['fp_iters_unsharded']}")
+
+    try:
+        for name, flags, sets, argv, n1, params, oracle, reuse in runs:
+            label = f"14{name} W=1 nccl N={n1}"
+            print(f"-- {label}: python -m porotpu_torch.tools.multichip -N {n1} --reps 0 "
+                  + " ".join(flags + sets), flush=True)
+            t0 = time.perf_counter()
+            out = multichip.run(1, "float64", device=dev, backend="nccl", N=n1, reps=0,
+                                driver_args=argv, parameters=params,
+                                reference=references.pop(reuse, None))
+            print(f"  {label}: {time.perf_counter() - t0:.1f} s in all, the gloo runs "
+                  "sharing the host and the card", flush=True)
+            check_run(label, out, 1, "nccl", flags, params, oracle)
             del out
             gc.collect()
-            import torch
-
             torch.cuda.empty_cache()
+        for name, flags, sets, argv, n1, params, oracle, reuse in runs:
+            label = f"14{name} W=2 gloo N={MULTICHIP_GLOO_N}"
+            future, log = gloo[name]
+            out, seconds = future.result()
+            log.seek(0)
+            print(f"-- {label}: python -m porotpu_torch.tools.multichip -N {MULTICHIP_GLOO_N} "
+                  f"--reps 0 {' '.join(flags + sets)} --spawn 2 --backend gloo (rank 0's "
+                  f"lines: {len(log.read().splitlines())}); {seconds:.1f} s in all, started "
+                  "with the others", flush=True)
+            check_run(label, out, 2, "gloo", flags, params, oracle)
+    finally:
+        pool.shutdown(wait=True)
+        for _, log in gloo.values():
+            log.close()
+        logs.cleanup()
+    print(f"-- 14's other solve paths: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def main():

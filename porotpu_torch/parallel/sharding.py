@@ -44,7 +44,8 @@ exchange across hosts.
 ``dia_kernel.COUNTS`` counts launches: ``exchange`` one point-to-point
 message a direction of a halo product, ``host_exchange`` those of them
 sent to a rank on another host (a mesh over ``n_hosts``), ``allreduce``
-and ``all_gather`` (its length that of the gathered vector).
+and ``all_gather`` (its length that of the gathered vector); ``SENT``
+counts the halo messages sent by the receiving rank.
 """
 
 from __future__ import annotations
@@ -58,12 +59,15 @@ import torch
 import torch.distributed as dist
 
 COLLECTIVES = collections.Counter()
+# halo messages this rank sent, by the receiving rank of the mesh
+SENT = collections.Counter()
 # seconds a collective may wait before the group fails, not hangs
 TIMEOUT_S = 120.0
 
 
 def reset_collectives():
     COLLECTIVES.clear()
+    SENT.clear()
 
 
 class PendingExchange:
@@ -112,8 +116,10 @@ class RowMesh:
 
     def _count_send(self, peer, n):
         COLLECTIVES["exchange", n] += 1
-        if peer is not None and peer // self.per_host != self.rank // self.per_host:
-            COLLECTIVES["host_exchange", n] += 1
+        if peer is not None:
+            SENT[peer] += 1
+            if peer // self.per_host != self.rank // self.per_host:
+                COLLECTIVES["host_exchange", n] += 1
 
     def _host(self, t):
         return t.cpu() if self.staged else t

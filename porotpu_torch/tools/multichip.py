@@ -218,6 +218,11 @@ def run(world=None, dtype="float64", device="cuda", backend=None, rank=None,
         coll = collectives_summary(sharding.COLLECTIVES, dia.MESH_PRODUCTS,
                                    problem.padded_sizes)
         coll["per_kind"] = {f"{op}:{n}": c for (op, n), c in sorted(sharding.COLLECTIVES.items())}
+        # the halo messages across each boundary between neighbouring ranks
+        sent = torch.tensor([sharding.SENT.get(r, 0) for r in range(W)], device=mesh.device)
+        sent = mesh.all_gather(sent).reshape(W, W).tolist() if W > 1 else [[0]]
+        coll["exchanges_by_boundary"] = [sent[r][r + 1] + sent[r + 1][r] for r in range(W - 1)]
+        coll["host_boundaries"] = [r for r in range(W - 1) if (r + 1) % mesh.per_host == 0]
         problem.sol = res.x
         x = problem.unpadded_solution()
         xg = sharding.gather_vector(res.x, mesh, problem.local_sizes)
@@ -329,8 +334,9 @@ def report(out) -> str:
         f" s (ratio {out['solve_s'] / out['solve_s_unsharded']:.2f})",
         f"  launches: K1 {out['K1']}, K2 {out['K2']}, plain {out['plain']} (unsharded: K1 "
         f"{out['K1_unsharded']}, K2 {out['K2_unsharded']})",
-        f"  collectives a solve: {out['exchanges']} exchanges ({out['host_exchanges']} across "
-        f"hosts) over {out['halo_products']} halo products "
+        f"  collectives a solve: {out['exchanges']} exchanges (rank 0's; across each boundary "
+        f"between neighbours {out['exchanges_by_boundary']}, host boundaries after ranks "
+        f"{out['host_boundaries']}) over {out['halo_products']} halo products "
         f"({out['exchanges_per_halo_product']:.2f} each), {out['allreduces']} "
         f"all-reduces, {out['all_gathers']} all-gathers (largest {out['all_gather_max']}, "
         f"largest field {out['field_max']}); products {out['mesh_products']}",
@@ -343,9 +349,10 @@ def report(out) -> str:
     return "\n".join(lines)
 
 
-def spawn(world, args_list, env=None, timeout=None):
+def spawn(world, args_list, env=None, timeout=None, output=None):
     """Start ``world`` ranks of this tool as child processes (rank 0's
-    output shown, the others' discarded) and return rank 0's result."""
+    output shown, or written to the file object ``output``; the others'
+    discarded) and return rank 0's result."""
     import torch
 
     ndev = torch.cuda.device_count() if "--device" not in args_list else 0
@@ -361,8 +368,8 @@ def spawn(world, args_list, env=None, timeout=None):
                    "--world", str(world), "--init", init, "--result", result, *args_list]
             logs.append(open(os.path.join(tmp, f"rank{r}.err"), "w+"))
             procs.append(subprocess.Popen(
-                cmd, env=e, stdout=None if r == 0 else subprocess.DEVNULL,
-                stderr=None if r == 0 else logs[-1],
+                cmd, env=e, stdout=output if r == 0 else subprocess.DEVNULL,
+                stderr=(output and subprocess.STDOUT) if r == 0 else logs[-1],
             ))
         try:
             for p in procs:
