@@ -87,10 +87,6 @@ def transpose_layout(data: torch.Tensor, offsets, ne: int) -> torch.Tensor:
 # Products on a row mesh by (dist kind, product, embedded): a halo block
 # that is not embedded makes one exchange a direction with a halo
 MESH_PRODUCTS = collections.Counter()
-# Whether a halo block sharded from now on splits its matvec into the
-# interior launch under the exchange and the boundary fix-ups (off: wait,
-# then one launch on the window, to measure what the split buys)
-HALO_SPLIT = True
 
 
 def halo_matvec_local(data, shift, shift_dev, window):
@@ -203,7 +199,7 @@ class DIA(nn.Module):
         self.register_buffer("shift_dev", torch.tensor(self.shift, dtype=torch.int32))
         # the interior/boundary split: the slab's first hl and last hr
         # columns for the fix-ups (porotpu's sweep_split, :366-405)
-        self.split = (HALO_SPLIT and kind == "halo" and self.col_emb is None
+        self.split = (mesh.halo_split and kind == "halo" and self.col_emb is None
                       and mesh.world > 1 and nloc - sum(self.halo) > 0)
         if self.split:
             hl, hr = self.halo

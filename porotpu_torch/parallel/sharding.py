@@ -96,6 +96,10 @@ class RowMesh:
     checks the layout): the partition is the same, and the exchanges
     between two blocks are also counted as crossing a host."""
 
+    # halo blocks sharded on this mesh launch their interior under the
+    # exchange (``ops/dia.py``); False: wait, then one launch on the window
+    halo_split = True
+
     def __init__(self, group, device: torch.device, owns_group: bool = False,
                  n_hosts: int = 1):
         self.group = group

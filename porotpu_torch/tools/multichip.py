@@ -193,14 +193,13 @@ def run(world=None, dtype="float64", device="cuda", backend=None, rank=None,
     kw = {} if timeout is None else {"timeout": timeout}
     mesh = sharding.solver_mesh(world, device, rank=rank, init_method=init_method,
                                 backend=backend, n_hosts=n_hosts, **kw)
-    split_before = dia.HALO_SPLIT
+    mesh.halo_split = split
     try:
         W = mesh.world
         if mesh.device.type == "cpu":
             # ranks on one host share its cores
             torch.set_num_threads(max(1, (os.cpu_count() or 1) // W))
         problem = build_problem(W, N, dtype, mesh.device, driver_args, parameters)
-        dia.HALO_SPLIT = split
         problem.create_solver(mesh)
         problem.first_timestep = False
         t = problem.t0 + problem.parameters["dt"]
@@ -291,7 +290,6 @@ def run(world=None, dtype="float64", device="cuda", backend=None, rank=None,
         mesh.barrier()
         return out
     finally:
-        dia.HALO_SPLIT = split_before
         mesh.close()
 
 

@@ -31,6 +31,7 @@ class SlabMesh:
     """The rank and world of a mesh: no process."""
 
     device = torch.device("cpu")
+    halo_split = True
 
     def __init__(self, rank, world):
         from ..parallel.sharding import RowMesh

@@ -224,6 +224,7 @@ def test_halo_local_products_on_the_card(W, dtype, tol, cuda_device):
 
     class SlabMesh:
         device = torch.device("cpu")
+        halo_split = True
         slab_len = sharding.RowMesh.slab_len
 
         def __init__(self, rank, world):

@@ -41,6 +41,7 @@ class SlabMesh:
     """The rank and world of a mesh, for the local functions: no process."""
 
     device = torch.device("cpu")
+    halo_split = True
 
     def __init__(self, rank, world):
         self.rank, self.world = rank, world
