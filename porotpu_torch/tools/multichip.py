@@ -33,11 +33,11 @@ product cannot vouch for itself; a solve that stops unconverged at its
 maxiter, as the unsharded one does (outer cg on the nonsymmetric system),
 prints the guard and is held to the count and x alone.  The inner
 FGMRES iterations of each ``fgmres+fs`` apply are recorded for both
-solves.  ``run(reference=...)`` takes the unsharded solve from a caller
-that already ran it (chip_smoke.py's driver phases).  ``--n-hosts H``
-makes the mesh host-major over H hosts and counts the exchanges that
-cross one; ``--no-split`` shards the halo blocks without the interior
-launch under the exchange.  The last line is the result as JSON.
+solves, and the halo messages across each boundary between neighbouring
+ranks.  ``run(reference=...)`` takes the unsharded solve from a caller
+that already ran it (chip_smoke.py's driver phases).  ``--no-split``
+shards the halo blocks without the interior launch under the exchange
+(``RowMesh.halo_split``).  The last line is the result as JSON.
 
 ``--spawn W`` starts W ranks as child processes of this one (a
 ``file://`` rendezvous in a temporary directory); under torchrun each
@@ -160,12 +160,10 @@ def collectives_summary(counts, products, padded_sizes):
     """Exchanges, all-reduces and all-gathers of one solve from
     ``sharding.COLLECTIVES`` and ``dia.MESH_PRODUCTS``."""
     exch = sum(n for (op, _), n in counts.items() if op == "exchange")
-    host_exch = sum(n for (op, _), n in counts.items() if op == "host_exchange")
     halo = sum(n for (kind, _, emb), n in products.items() if kind == "halo" and not emb)
     ag = [length for (op, length), n in counts.items() if op == "all_gather" for _ in range(n)]
     return {
         "exchanges": exch,
-        "host_exchanges": host_exch,
         "halo_products": halo,
         "exchanges_per_halo_product": exch / halo if halo else 0.0,
         "mesh_products": {f"{k}/{p}{'/emb' if e else ''}": n for (k, p, e), n in products.items()},
@@ -178,7 +176,7 @@ def collectives_summary(counts, products, padded_sizes):
 
 def run(world=None, dtype="float64", device="cuda", backend=None, rank=None,
         init_method=None, N=PROBLEM_N, reps=3, timeout=None, driver_args=None,
-        parameters=None, n_hosts=None, split=True, reference=None):
+        parameters=None, split=True, reference=None):
     """One rank's part: the sharded solve and, on rank 0, the unsharded one
     (or ``reference``, from ``reference_of``) and the checks.  Returns the
     result dict on rank 0, None elsewhere.  Makes the process group and
@@ -192,7 +190,7 @@ def run(world=None, dtype="float64", device="cuda", backend=None, rank=None,
 
     kw = {} if timeout is None else {"timeout": timeout}
     mesh = sharding.solver_mesh(world, device, rank=rank, init_method=init_method,
-                                backend=backend, n_hosts=n_hosts, **kw)
+                                backend=backend, **kw)
     mesh.halo_split = split
     try:
         W = mesh.world
@@ -221,7 +219,6 @@ def run(world=None, dtype="float64", device="cuda", backend=None, rank=None,
         sent = torch.tensor([sharding.SENT.get(r, 0) for r in range(W)], device=mesh.device)
         sent = mesh.all_gather(sent).reshape(W, W).tolist() if W > 1 else [[0]]
         coll["exchanges_by_boundary"] = [sent[r][r + 1] + sent[r + 1][r] for r in range(W - 1)]
-        coll["host_boundaries"] = [r for r in range(W - 1) if (r + 1) % mesh.per_host == 0]
         problem.sol = res.x
         x = problem.unpadded_solution()
         xg = sharding.gather_vector(res.x, mesh, problem.local_sizes)
@@ -253,13 +250,7 @@ def run(world=None, dtype="float64", device="cuda", backend=None, rank=None,
             with torch.inference_mode():
                 ea, er = (v.item() for v in fw.errors(b1 - A1.matvec(xg.to(b1.device))))
             p = problem.parameters
-            atol, rtol = float(p["solver atol"]), float(p["solver rtol"])
-            odb = p.get("options db")
-            if odb is not None:
-                g = odb.prefix_items("global")
-                atol = float(g.get("ksp_atol") or atol)
-                rtol = float(g.get("ksp_rtol") or rtol)
-            guard = ea < atol or er < rtol
+            guard = ea < float(p["solver atol"]) or er < float(p["solver rtol"])
             x_rel = float(np.linalg.norm(x - x1) / np.linalg.norm(x1))
             out = {
                 "world": W, "backend": mesh.backend, "device": str(mesh.device),
@@ -268,7 +259,7 @@ def run(world=None, dtype="float64", device="cuda", backend=None, rank=None,
                 "dtype": dtype, "N": N, "dofs": problem.W.num_dofs,
                 "problem": " ".join(driver_args) if driver_args else "dryrun_multichip",
                 "parameters": dict(parameters or {}),
-                "n_hosts": mesh.n_hosts, "split": split,
+                "split": split,
                 "padded": list(problem.padded_sizes),
                 "iterations": res.iters, "converged": bool(res.converged),
                 "iterations_unsharded": reference["iterations"],
@@ -319,7 +310,7 @@ def report(out) -> str:
     reused = " (reused: the caller's solve, its counts over the whole step)" \
         if out["reference_reused"] else ""
     lines = [
-        f"multichip: W={out['world']} ({out['n_hosts']} host(s)) {out['backend']} on "
+        f"multichip: W={out['world']} {out['backend']} on "
         f"{out['device']} ({out['card']}), {out['dtype']}, swelling N={out['N']} "
         f"[{out['problem']}] {out['parameters'] or ''}, dofs {out['dofs']}, padded "
         f"{out['padded']}, halo split {out['split']}",
@@ -333,8 +324,8 @@ def report(out) -> str:
         f"  launches: K1 {out['K1']}, K2 {out['K2']}, plain {out['plain']} (unsharded: K1 "
         f"{out['K1_unsharded']}, K2 {out['K2_unsharded']})",
         f"  collectives a solve: {out['exchanges']} exchanges (rank 0's; across each boundary "
-        f"between neighbours {out['exchanges_by_boundary']}, host boundaries after ranks "
-        f"{out['host_boundaries']}) over {out['halo_products']} halo products "
+        f"between neighbours {out['exchanges_by_boundary']}) over {out['halo_products']} "
+        f"halo products "
         f"({out['exchanges_per_halo_product']:.2f} each), {out['allreduces']} "
         f"all-reduces, {out['all_gathers']} all-gathers (largest {out['all_gather_max']}, "
         f"largest field {out['field_max']}); products {out['mesh_products']}",
@@ -390,8 +381,7 @@ def spawn(world, args_list, env=None, timeout=None, output=None):
 
 
 # the swelling driver's flags the tool passes on
-DRIVER_FLAGS = ("--petsc-options", "--solver-type", "--inner-accel-order", "--pc-type",
-                "--pc-dtype")
+DRIVER_FLAGS = ("--petsc-options", "--solver-type", "--inner-accel-order", "--pc-type")
 
 
 def main(argv=None):
@@ -404,7 +394,6 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=3,
                     help="timed solves after the counted one (0: time the counted one)")
     ap.add_argument("--timeout", type=float, help="seconds a collective may wait")
-    ap.add_argument("--n-hosts", type=int, help="a host-major mesh over this many hosts")
     ap.add_argument("--no-split", action="store_true",
                     help="halo matvecs wait for the exchange before their one launch")
     ap.add_argument("--parameter", action="append", default=[], metavar="KEY=VALUE",
@@ -430,8 +419,6 @@ def main(argv=None):
         common += ["--backend", args.backend]
     if args.timeout:
         common += ["--timeout", str(args.timeout)]
-    if args.n_hosts:
-        common += ["--n-hosts", str(args.n_hosts)]
     if args.no_split:
         common += ["--no-split"]
     if args.spawn:
@@ -439,7 +426,7 @@ def main(argv=None):
     else:
         out = run(args.world, args.dtype, args.device, args.backend, args.rank, args.init,
                   args.N, args.reps, args.timeout, driver_args or None,
-                  parse_parameters(args.parameter), args.n_hosts, not args.no_split)
+                  parse_parameters(args.parameter), not args.no_split)
         if out is None:
             return 0
         if args.result:  # a spawned rank 0: the parent prints
