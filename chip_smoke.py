@@ -190,11 +190,14 @@
    11), and all four over gloo at W=2 at N=20, two ranks each, the four
    started together before the NCCL runs and waited on after them.  Each
    must give the unsharded port's count (at W=1 porotpu's 32, 16 and 7;
-   (d) stops at 20 unconverged on both sides), x within 1e-8 relative,
-   the guard through the unsharded operator (for the converged runs),
-   K1 launched and no plain product, 2 exchanges a halo product at W=2,
-   and for (c) one inner FGMRES count an outer iteration, printed beside
-   the unsharded run's.
+   (d) is declared to stop at 20 unconverged on both sides, every other
+   run must converge on both), x within 1e-8 relative, the guard through
+   the unsharded operator (for the converged runs), K1 launched and no
+   plain product, 2 exchanges a halo product at W=2, and for (c) one
+   inner FGMRES count an outer iteration, printed beside the unsharded
+   run's.  Under gloo a halo matvec waits for its exchange and launches
+   once (``RowMesh.halo_split``: only NCCL launches the interior under
+   the exchange, which needs two cards).
 
 Any failed check raises and the script exits non-zero.  It also exits
 non-zero without a CUDA device, and fails if jax or any module of porotpu
@@ -294,16 +297,18 @@ MULTICHIP_RUNS = ((1, "nccl", "float64"), (1, "nccl", "float32"),
                   (2, "gloo", "float64"), (2, "gloo", "float32"))
 # phase 14: the other solve paths on the mesh, the swelling driver's
 # command lines in f64: label, flags, N under NCCL at W=1, parameter
-# overrides, porotpu's count at that N (phase 11's and 8's oracles; None:
-# the unsharded port's count alone) and the phase 8 or 11 run whose
-# unsharded solve W=1 reuses; gloo at W=2 runs them at MULTICHIP_GLOO_N
+# overrides, whether the solves converge (False: both stop at their
+# maxiter, outer cg on the nonsymmetric system), porotpu's count at that
+# N (phase 11's and 8's oracles; None: the unsharded port's count alone)
+# and the phase 8 or 11 run whose unsharded solve W=1 reuses; gloo at W=2
+# runs them at MULTICHIP_GLOO_N
 MULTICHIP_DRIVER_RUNS = (
-    ("a aar", ["--solver-type", "aar"], 80, {}, 32, "swelling_aar"),
+    ("a aar", ["--solver-type", "aar"], 80, {}, True, 32, "swelling_aar"),
     ("b accel1", ["--petsc-options", "petsc-options-inexact", "--inner-accel-order", "1"], 80,
-     {}, 16, "swelling_inexact_accel1"),
-    ("c qexact", ["--petsc-options", "petsc-options-exact-iterative"], 80, {}, 7,
+     {}, True, 16, "swelling_inexact_accel1"),
+    ("c qexact", ["--petsc-options", "petsc-options-exact-iterative"], 80, {}, True, 7,
      "swelling_qexact"),
-    ("d cg", ["--solver-type", "cg"], 40, {"solver maxiter": 20}, None, None),
+    ("d cg", ["--solver-type", "cg"], 40, {"solver maxiter": 20}, False, None, None),
 )
 MULTICHIP_GLOO_N = 20
 
@@ -1141,10 +1146,12 @@ def multichip_phase(dev, references):
     runs, gloo = [], {}
     pool = concurrent.futures.ThreadPoolExecutor(len(MULTICHIP_DRIVER_RUNS))
     logs = tempfile.TemporaryDirectory()
-    for name, flags, n1, params, oracle, reuse in MULTICHIP_DRIVER_RUNS:
+    for name, flags, n1, params, converges, oracle, reuse in MULTICHIP_DRIVER_RUNS:
         argv = _argv(flags)
         sets = [f"--parameter={k}={v}" for k, v in params.items()]
-        runs.append((name, flags, sets, argv, n1, params, oracle, reuse))
+        if not converges:
+            sets.append("--expect-unconverged")
+        runs.append((name, flags, sets, argv, n1, params, converges, oracle, reuse))
         log = open(os.path.join(logs.name, name.split()[0] + ".log"), "w+")
 
         def gloo_run(argv=argv, sets=sets, log=log):
@@ -1155,14 +1162,15 @@ def multichip_phase(dev, references):
 
         gloo[name] = (pool.submit(gloo_run), log)
 
-    def check_run(label, out, world, backend, flags, params, oracle):
+    def check_run(label, out, world, backend, flags, converges, oracle):
         print(multichip.report(out), flush=True)
         check(out["world"] == world and out["backend"] == backend
               and out["device"].startswith("cuda"), f"{label}: ran as {out['world']} "
               f"{out['backend']} on {out['device']}")
         check(not out["failures"], f"{label}: " + "; ".join(out["failures"]))
         # (d) stops at its maxiter unconverged, as the unsharded solve
-        check(out["converged"] or oracle is None, f"{label}: the solve did not converge")
+        check(out["expect_converged"] == converges and out["converged"] == converges,
+              f"{label}: converged {out['converged']}, expected {converges}")
         check(out["K1"] > 0, f"{label}: K1 {out['K1']}")
         check(out["plain"] == 0, f"{label}: {out['plain']} banded products took a plain version")
         if world == 1 and oracle is not None:
@@ -1178,21 +1186,22 @@ def multichip_phase(dev, references):
                   f"{out['iterations']} outer, unsharded {out['fp_iters_unsharded']}")
 
     try:
-        for name, flags, sets, argv, n1, params, oracle, reuse in runs:
+        for name, flags, sets, argv, n1, params, converges, oracle, reuse in runs:
             label = f"14{name} W=1 nccl N={n1}"
             print(f"-- {label}: python -m porotpu_torch.tools.multichip -N {n1} --reps 0 "
                   + " ".join(flags + sets), flush=True)
             t0 = time.perf_counter()
             out = multichip.run(1, "float64", device=dev, backend="nccl", N=n1, reps=0,
                                 driver_args=argv, parameters=params,
+                                expect_converged=converges,
                                 reference=references.pop(reuse, None))
             print(f"  {label}: {time.perf_counter() - t0:.1f} s in all, the gloo runs "
                   "sharing the host and the card", flush=True)
-            check_run(label, out, 1, "nccl", flags, params, oracle)
+            check_run(label, out, 1, "nccl", flags, converges, oracle)
             del out
             gc.collect()
             torch.cuda.empty_cache()
-        for name, flags, sets, argv, n1, params, oracle, reuse in runs:
+        for name, flags, sets, argv, n1, params, converges, oracle, reuse in runs:
             label = f"14{name} W=2 gloo N={MULTICHIP_GLOO_N}"
             future, log = gloo[name]
             out, seconds = future.result()
@@ -1201,7 +1210,7 @@ def multichip_phase(dev, references):
                   f"--reps 0 {' '.join(flags + sets)} --spawn 2 --backend gloo (rank 0's "
                   f"lines: {len(log.read().splitlines())}); {seconds:.1f} s in all, started "
                   "with the others", flush=True)
-            check_run(label, out, 2, "gloo", flags, params, oracle)
+            check_run(label, out, 2, "gloo", flags, converges, oracle)
     finally:
         pool.shutdown(wait=True)
         for _, log in gloo.values():
@@ -1465,19 +1474,11 @@ def main():
     # -- 8. the reference drivers' path, f64 --------------------------------
     from porotpu_torch.drivers import footing, swelling
     from porotpu_torch.ops.sparse import ELL_PRODUCTS
-    from porotpu_torch.precond import inner
-
-    # the inner FGMRES iterations of each fgmres+fs apply
-    inner_iters, fgmres = [], inner.fgmres
-
-    def counted_fgmres(*args, **kwargs):
-        res = fgmres(*args, **kwargs)
-        inner_iters.append(res.iters)
-        return res
-
-    inner.fgmres = counted_fgmres
-    drivers_by_name = {"swelling": swelling, "footing": footing}
     from porotpu_torch.tools import multichip
+
+    # the inner FGMRES iterations of each fgmres+fs apply, from here on
+    inner_iters = multichip.inner_fgmres_counts().__enter__()
+    drivers_by_name = {"swelling": swelling, "footing": footing}
 
     # phase 14 reuses these runs' unsharded solves
     REUSED = {reuse for *_, reuse in MULTICHIP_DRIVER_RUNS if reuse}

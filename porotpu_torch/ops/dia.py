@@ -23,13 +23,15 @@ its rows and its ``dist`` tag says how a product communicates
 - ``("halo", mesh)``: the embedded space is the row space and the halo,
   ``hl = max(0, -min off)`` left and ``hr = max(off, 0)`` right, fits one
   slab.  The matvec receives ``hl`` entries from the left neighbour and
-  ``hr`` from the right one in one exchange.  It starts the exchange,
+  ``hr`` from the right one in one exchange.  Where the mesh's exchange
+  can overlap compute (``mesh.halo_split``: NCCL) it starts the exchange,
   makes the slab's K1 launch on ``x_loc`` alone (offsets unshifted: the
   interior rows ``[hl, nloc - hr)`` read only the slab) while the
   messages fly, then waits and recomputes the ``hl`` top and ``hr``
   bottom rows with two small K1 launches on the received halos
-  (porotpu's ``sweep_split``).  With no interior (``nloc <= hl + hr``)
-  or one rank it waits first and makes one K1 launch on the window
+  (porotpu's ``sweep_split``).  Elsewhere (gloo), with no interior
+  (``nloc <= hl + hr``) or with one rank it waits first and makes one
+  K1 launch on the window
   ``[from_left | x_loc | from_right]``, offsets shifted by ``+hl``.  The
   transpose makes one K2 launch over the window of
   ``hl + nloc + hr`` columns, then sends its two overflows to the
@@ -159,7 +161,7 @@ class DIA(nn.Module):
 
     dist = None  # None, ("halo", mesh) or ("gather", mesh)
     col_slab = True  # on a mesh: the column space is a field in slabs
-    split = False  # on a mesh: the halo matvec runs its interior under the exchange
+    split = False  # on a mesh: the halo matvec can run its interior under the exchange
 
     def __init__(self, data, offsets, nrows, ncols, col_emb=None, ne=None, dataT=None):
         super().__init__()
@@ -199,7 +201,7 @@ class DIA(nn.Module):
         self.register_buffer("shift_dev", torch.tensor(self.shift, dtype=torch.int32))
         # the interior/boundary split: the slab's first hl and last hr
         # columns for the fix-ups (porotpu's sweep_split, :366-405)
-        self.split = (mesh.halo_split and kind == "halo" and self.col_emb is None
+        self.split = (kind == "halo" and self.col_emb is None
                       and mesh.world > 1 and nloc - sum(self.halo) > 0)
         if self.split:
             hl, hr = self.halo
@@ -298,7 +300,7 @@ class DIA(nn.Module):
         if kind == "halo" and self.col_emb is None:
             hl, hr = self.halo
             pending = mesh.exchange_start(x[:hr], x[nloc - hl :])
-            if not self.split:
+            if not (self.split and mesh.halo_split):
                 from_left, from_right = pending.wait()
                 return halo_matvec_local(self.data, self.shift, self.shift_dev,
                                          torch.cat([from_left, x, from_right]))

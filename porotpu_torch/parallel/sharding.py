@@ -36,7 +36,8 @@ own.  With no mesh nothing here runs.
 ``RowMesh`` runs NCCL on the card and gloo on the CPU; gloo on the card
 (several ranks sharing one card) stages every message through the host.
 A halo exchange can be started and waited on later
-(``exchange_start``): the halo matvec launches its interior under it.
+(``exchange_start``): under NCCL the halo matvec launches its interior
+under it (``RowMesh.halo_split``).
 ``solver_mesh(n_hosts=H)`` checks that the ranks are host-major and
 keeps the 1-D partition, so only neighbours at a host boundary
 exchange across hosts.
@@ -96,10 +97,6 @@ class RowMesh:
     checks the layout): the partition is the same, and the exchanges
     between two blocks are also counted as crossing a host."""
 
-    # halo blocks sharded on this mesh launch their interior under the
-    # exchange (``ops/dia.py``); False: wait, then one launch on the window
-    halo_split = True
-
     def __init__(self, group, device: torch.device, owns_group: bool = False,
                  n_hosts: int = 1):
         self.group = group
@@ -110,6 +107,11 @@ class RowMesh:
         self.backend = dist.get_backend(group)
         # gloo takes host tensors point to point: stage a card's messages
         self.staged = self.backend == "gloo" and self.device.type == "cuda"
+        # halo matvecs launch their interior under the exchange
+        # (``ops/dia.py``) where the two can overlap: NCCL runs the messages
+        # on its own stream, while gloo's wait, and on the card its staging
+        # through the host, hold the host.  Else they wait, then launch once
+        self.halo_split = self.backend == "nccl" and self.world > 1
         self.owns_group = owns_group
         self.n_hosts = int(n_hosts)
         self.per_host = self.world // self.n_hosts

@@ -5,7 +5,9 @@
     torchrun --nproc-per-node 4 -m porotpu_torch.tools.multichip     # NCCL, a rank a card
     python -m porotpu_torch.tools.multichip --spawn 4 --device cpu   # gloo on the host
     python -m porotpu_torch.tools.multichip -N 80 --solver-type aar  # the swelling driver's problem
-    python -m porotpu_torch.tools.multichip -N 40 --solver-type cg --parameter "solver maxiter=20"
+    python -m porotpu_torch.tools.multichip -N 40 --solver-type cg --parameter "solver maxiter=20" \
+        --expect-unconverged
+    torchrun --nproc-per-node 4 -m porotpu_torch.tools.multichip --pairs 3   # split against unsplit
 
 By default the port's counterpart of ``__graft_entry__.py:dryrun_multichip``
 (:54-160): swelling N=40 with the 3-way block preconditioner and inexact
@@ -29,15 +31,19 @@ system-scale all-gather" rule, :121-155), as do a count that differs from
 the unsharded one, x off the unsharded x by more than ``X_RTOL`` and a
 missed guard.  The guard is the true residual's field-wise test of the
 gathered sharded x through the unsharded operator, so a wrong halo
-product cannot vouch for itself; a solve that stops unconverged at its
-maxiter, as the unsharded one does (outer cg on the nonsymmetric system),
-prints the guard and is held to the count and x alone.  The inner
+product cannot vouch for itself.  Both solves must converge, unless the
+run declares that both stop unconverged at their maxiter
+(``--expect-unconverged``, ``run(expect_converged=False)``: outer cg on
+the nonsymmetric system); such a run prints the guard and is held to
+the count, the stop and x.  The inner
 FGMRES iterations of each ``fgmres+fs`` apply are recorded for both
 solves, and the halo messages across each boundary between neighbouring
 ranks.  ``run(reference=...)`` takes the unsharded solve from a caller
-that already ran it (chip_smoke.py's driver phases).  ``--no-split``
-shards the halo blocks without the interior launch under the exchange
-(``RowMesh.halo_split``).  The last line is the result as JSON.
+that already ran it (chip_smoke.py's driver phases).  ``--pairs K``
+then times K pairs of sharded solves, one with the halo matvecs'
+interior launch under the exchange and one waiting first (the mesh's
+``halo_split`` set for each, the pair's order alternating), to compare
+the two on several cards.  The last line is the result as JSON.
 
 ``--spawn W`` starts W ranks as child processes of this one (a
 ``file://`` rendezvous in a temporary directory); under torchrun each
@@ -106,7 +112,8 @@ def build_problem(W, N, dtype, device, driver_args=None, parameters=None):
 
 
 class inner_fgmres_counts:
-    """Record the iterations of each inner ``fgmres+fs`` apply while active."""
+    """Record the iterations of each inner ``fgmres+fs`` apply while active
+    (``__enter__`` returns the list it appends to)."""
 
     def __enter__(self):
         from porotpu_torch.precond import inner
@@ -156,6 +163,23 @@ def _median_solve(problem, b, reps, torch):
     return res, sorted(times)[len(times) // 2]
 
 
+def _split_pairs(problem, b, mesh, pairs, torch):
+    """Seconds of ``pairs`` pairs of sharded solves, (split, unsplit): the
+    mesh's ``halo_split`` set for each solve, the split one first in the
+    even pairs and second in the odd ones; the mesh's own setting after."""
+    own, times = mesh.halo_split, []
+    try:
+        for i in range(pairs):
+            pair = {}
+            for split in ((True, False) if i % 2 == 0 else (False, True)):
+                mesh.halo_split = split
+                pair[split] = _median_solve(problem, b, 1, torch)[1]
+            times.append((pair[True], pair[False]))
+    finally:
+        mesh.halo_split = own
+    return times
+
+
 def collectives_summary(counts, products, padded_sizes):
     """Exchanges, all-reduces and all-gathers of one solve from
     ``sharding.COLLECTIVES`` and ``dia.MESH_PRODUCTS``."""
@@ -176,11 +200,13 @@ def collectives_summary(counts, products, padded_sizes):
 
 def run(world=None, dtype="float64", device="cuda", backend=None, rank=None,
         init_method=None, N=PROBLEM_N, reps=3, timeout=None, driver_args=None,
-        parameters=None, split=True, reference=None):
+        parameters=None, expect_converged=True, pairs=0, reference=None):
     """One rank's part: the sharded solve and, on rank 0, the unsharded one
-    (or ``reference``, from ``reference_of``) and the checks.  Returns the
-    result dict on rank 0, None elsewhere.  Makes the process group and
-    destroys it at the end."""
+    (or ``reference``, from ``reference_of``) and the checks.
+    ``expect_converged=False``: both solves are to stop unconverged at
+    their maxiter.  ``pairs``: as ``--pairs``.  Returns the result dict on
+    rank 0, None elsewhere.  Makes the process group and destroys it at
+    the end."""
     import numpy as np
     import torch
 
@@ -191,7 +217,6 @@ def run(world=None, dtype="float64", device="cuda", backend=None, rank=None,
     kw = {} if timeout is None else {"timeout": timeout}
     mesh = sharding.solver_mesh(world, device, rank=rank, init_method=init_method,
                                 backend=backend, **kw)
-    mesh.halo_split = split
     try:
         W = mesh.world
         if mesh.device.type == "cpu":
@@ -224,6 +249,7 @@ def run(world=None, dtype="float64", device="cuda", backend=None, rank=None,
         xg = sharding.gather_vector(res.x, mesh, problem.local_sizes)
         # reps 0: the counted solve's own time
         t_sharded = _median_solve(problem, b, reps, torch)[1] or t_counted
+        split_pairs = _split_pairs(problem, b, mesh, pairs, torch)
         out = None
         if mesh.rank == 0:
             if reference is None:
@@ -259,9 +285,10 @@ def run(world=None, dtype="float64", device="cuda", backend=None, rank=None,
                 "dtype": dtype, "N": N, "dofs": problem.W.num_dofs,
                 "problem": " ".join(driver_args) if driver_args else "dryrun_multichip",
                 "parameters": dict(parameters or {}),
-                "split": split,
+                "split": bool(mesh.halo_split), "split_pairs": split_pairs,
                 "padded": list(problem.padded_sizes),
                 "iterations": res.iters, "converged": bool(res.converged),
+                "expect_converged": bool(expect_converged),
                 "iterations_unsharded": reference["iterations"],
                 "converged_unsharded": reference["converged"],
                 "reference_reused": reference.get("reused", True),
@@ -287,14 +314,15 @@ def run(world=None, dtype="float64", device="cuda", backend=None, rank=None,
 def check(out):
     """The run's failures, as messages (none: it passed)."""
     fails = []
-    if (out["iterations"] != out["iterations_unsharded"]
-            or out["converged"] != out["converged_unsharded"]):
+    want = out["expect_converged"]
+    if (out["iterations"] != out["iterations_unsharded"] or out["converged"] != want
+            or out["converged_unsharded"] != want):
         fails.append(f"{out['iterations']} iterations (converged {out['converged']}), "
                      f"unsharded {out['iterations_unsharded']} (converged "
-                     f"{out['converged_unsharded']})")
+                     f"{out['converged_unsharded']}); expected to converge: {want}")
     if not out["x_rel"] <= out["x_rtol"]:
         fails.append(f"x off the unsharded x by {out['x_rel']:.3e} > {out['x_rtol']:g}")
-    if out["converged"] and not out["guard_met"]:
+    if want and not out["guard_met"]:
         fails.append(f"true-residual guard missed (abs {out['guard_abs']:.3e}, "
                      f"rel {out['guard_rel']:.3e})")
     if out["foreign"]:
@@ -330,6 +358,12 @@ def report(out) -> str:
         f"all-reduces, {out['all_gathers']} all-gathers (largest {out['all_gather_max']}, "
         f"largest field {out['field_max']}); products {out['mesh_products']}",
     ]
+    if out["split_pairs"]:
+        split, unsplit = zip(*out["split_pairs"])
+        lines.append(f"  pairs of sharded solves, split / unsplit s: "
+                     + ", ".join(f"{a:.4f} / {b:.4f}" for a, b in out["split_pairs"])
+                     + f"; medians {sorted(split)[len(split) // 2]:.4f} / "
+                     f"{sorted(unsplit)[len(unsplit) // 2]:.4f}")
     if out["fp_iters"] or out["fp_iters_unsharded"]:
         lines.append(f"  inner fgmres+fs iterations an apply: sharded {out['fp_iters']}, "
                      f"unsharded {out['fp_iters_unsharded']}")
@@ -341,7 +375,9 @@ def report(out) -> str:
 def spawn(world, args_list, env=None, timeout=None, output=None):
     """Start ``world`` ranks of this tool as child processes (rank 0's
     output shown, or written to the file object ``output``; the others'
-    discarded) and return rank 0's result."""
+    discarded) and return rank 0's result.  If a rank fails, the error
+    holds the tails of the ranks' errors, rank 0's output in ``output``
+    among them."""
     import torch
 
     ndev = torch.cuda.device_count() if "--device" not in args_list else 0
@@ -375,6 +411,10 @@ def spawn(world, args_list, env=None, timeout=None, output=None):
             errs.append(log.read()[-4000:])
             log.close()
         if any(rcs):
+            if output is not None:
+                output.flush()
+                output.seek(0)
+                errs[0] = output.read()[-4000:]
             raise RuntimeError(f"multichip ranks exited {rcs}: " + "".join(errs))
         with open(result) as f:
             return json.load(f)
@@ -394,8 +434,10 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=3,
                     help="timed solves after the counted one (0: time the counted one)")
     ap.add_argument("--timeout", type=float, help="seconds a collective may wait")
-    ap.add_argument("--no-split", action="store_true",
-                    help="halo matvecs wait for the exchange before their one launch")
+    ap.add_argument("--expect-unconverged", action="store_true",
+                    help="both solves are to stop unconverged at their maxiter")
+    ap.add_argument("--pairs", type=int, default=0,
+                    help="then time this many pairs of sharded solves, split and unsplit")
     ap.add_argument("--parameter", action="append", default=[], metavar="KEY=VALUE",
                     help="a parameter override, e.g. 'solver maxiter=20' (repeatable)")
     for flag in DRIVER_FLAGS:
@@ -419,14 +461,16 @@ def main(argv=None):
         common += ["--backend", args.backend]
     if args.timeout:
         common += ["--timeout", str(args.timeout)]
-    if args.no_split:
-        common += ["--no-split"]
+    if args.expect_unconverged:
+        common += ["--expect-unconverged"]
+    if args.pairs:
+        common += ["--pairs", str(args.pairs)]
     if args.spawn:
         out = spawn(args.spawn, common)
     else:
         out = run(args.world, args.dtype, args.device, args.backend, args.rank, args.init,
                   args.N, args.reps, args.timeout, driver_args or None,
-                  parse_parameters(args.parameter), not args.no_split)
+                  parse_parameters(args.parameter), not args.expect_unconverged, args.pairs)
         if out is None:
             return 0
         if args.result:  # a spawned rank 0: the parent prints

@@ -28,7 +28,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 
 
 class SlabMesh:
-    """The rank and world of a mesh: no process."""
+    """The rank and world of a mesh: no process.  Its halo matvecs split as
+    under NCCL (``RowMesh.halo_split``)."""
 
     device = torch.device("cpu")
     halo_split = True

@@ -221,14 +221,7 @@ def test_halo_local_products_on_the_card(W, dtype, tol, cuda_device):
     hl + nloc + hr columns, on the slabs of a random banded operator."""
     from porotpu_torch.ops.dia import halo_matvec_local, halo_rmatvec_local
     from porotpu_torch.parallel import sharding
-
-    class SlabMesh:
-        device = torch.device("cpu")
-        halo_split = True
-        slab_len = sharding.RowMesh.slab_len
-
-        def __init__(self, rank, world):
-            self.rank, self.world = rank, world
+    from porotpu_torch.tools.shard_walk import SlabMesh
 
     rng = np.random.default_rng(21)
     n, offs = 8192, (-700, -129, -1, 0, 1, 3, 128, 811)

@@ -26,8 +26,9 @@ from porotpu_torch.ops.dia import (
 )
 from porotpu_torch.ops.sparse import ELL
 from porotpu_torch.parallel import sharding
+from porotpu_torch.tools.shard_walk import SlabMesh
 from torch_k1_cases import (  # noqa: F401 (one_blas_thread: a fixture)
-    PARALLEL_SOLVES, banded_random, join_parallel_group, one_blas_thread, parallel_problem,
+    PARALLEL_SOLVES, UNCONVERGED_SOLVES, banded_random, join_parallel_group, one_blas_thread, parallel_problem,
     start_parallel_group,
 )
 
@@ -35,19 +36,6 @@ torch.set_num_threads(1)
 WORLDS = (2, 4)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOLVE_CASES = [(case, W) for case, (*_, worlds) in PARALLEL_SOLVES.items() for W in worlds]
-
-
-class SlabMesh:
-    """The rank and world of a mesh, for the local functions: no process."""
-
-    device = torch.device("cpu")
-    halo_split = True
-
-    def __init__(self, rank, world):
-        self.rank, self.world = rank, world
-
-    slab_len = sharding.RowMesh.slab_len
-    slab = sharding.RowMesh.slab
 
 
 @pytest.fixture(scope="module")
@@ -332,6 +320,26 @@ def test_every_solver_configuration_builds_on_a_mesh():
         parallel_problem("swelling_3way_lu").create_solver(SlabMesh(0, 3))
 
 
+@pytest.mark.parametrize("expect, converged, unsharded, guard, fails", [
+    (True, True, True, True, 0),
+    (True, False, False, False, 2),  # both stopped at maxiter: count and guard fail
+    (True, True, False, True, 1),
+    (False, False, False, False, 0),  # declared: held to the count, the stop and x
+    (False, True, True, True, 1),
+])
+def test_multichip_requires_convergence_unless_declared(expect, converged, unsharded, guard,
+                                                        fails):
+    """tools/multichip.py's check: both solves must converge and meet the
+    guard, unless the run declares that both stop at their maxiter."""
+    from porotpu_torch.tools import multichip
+
+    out = {"iterations": 20, "iterations_unsharded": 20, "converged": converged,
+           "converged_unsharded": unsharded, "expect_converged": expect, "x_rel": 0.0,
+           "x_rtol": 1e-8, "guard_met": guard, "guard_abs": 1.0, "guard_rel": 1.0,
+           "foreign": [], "all_gather_max": 1, "field_max": 1}
+    assert len(multichip.check(out)) == fails
+
+
 def test_every_driver_tree_shards(capsys):
     """The grid's 12 configurations and the five drivers' defaults at N=2
     shard without processes (``tools/shard_walk.py``); none holds an
@@ -351,12 +359,15 @@ def test_every_driver_tree_shards(capsys):
 def test_sharded_solve_matches_unsharded(ranks, reference, case, W):
     """The unsharded port's outer count and x within 1e-8 relative (1e-6
     for the 3-way lu case: porotpu's bounds, tests/test_parallel.py:76, 92),
-    on every rank."""
+    on every rank; converged, but for the cases that stop at their maxiter
+    on both sides (UNCONVERGED_SOLVES)."""
     its, x_ref, converged = reference[case]
+    want = case not in UNCONVERGED_SOLVES
+    assert converged == want
     tol = 1e-6 if case.startswith("swelling_3way_lu") else 1e-8
     for rank in ranks:
         got = rank[str(W)]["solves"][case]
-        assert got["converged"] == converged and got["iterations"] == its, (
+        assert got["converged"] == want and got["iterations"] == its, (
             got["iterations"], its)
         x = np.asarray(got["x"])
         assert np.linalg.norm(x - x_ref) / np.linalg.norm(x_ref) < tol
@@ -382,6 +393,20 @@ def test_halo_product_makes_two_exchanges(ranks, W):
     (porotpu's test_sharded_dia_halo_is_aggregated)."""
     for rank in ranks:
         assert rank[str(W)]["halo"] == {"dist": "halo", "exchanges": 2}
+
+
+@pytest.mark.parametrize("W", WORLDS)
+def test_gloo_halo_matvec_waits_then_launches_once(ranks, W):
+    """On gloo, whose wait holds the host, a halo matvec waits for its
+    exchange and makes one K1 launch (RowMesh.halo_split is NCCL's); with
+    the split forced it makes three (interior, two fix-ups) where the slab
+    is wider than its halos (at W=2; at W=4 the solid block's is not) and
+    gives the same product bit for bit."""
+    for rank in ranks:
+        got = rank[str(W)]["halo_split"]
+        assert got["interior"] == (W == 2)
+        assert got == {"mesh": False, "interior": W == 2, "launches": [1, 3 if W == 2 else 1],
+                       "equal": True}
 
 
 @pytest.mark.parametrize("W", WORLDS)

@@ -268,6 +268,9 @@ PARALLEL_SOLVES = {
         "solver maxiter": 20, "solver chunk": 5}, False, (2, 4)),
 }
 PARALLEL_WORLD = 4
+# the cases that stop unconverged at their maxiter, sharded and unsharded
+# alike: outer cg on the nonsymmetric system (tests/test_torch_outer.py)
+UNCONVERGED_SOLVES = ("swelling_cg_maxiter20", "swelling_cg_4_chunks")
 
 
 def parallel_problem(name, device="cpu", **more):
@@ -341,7 +344,7 @@ def _rank_cases(mesh, rng):
 
     import torch
 
-    from porotpu_torch.ops import dia
+    from porotpu_torch.ops import dia, dia_kernel
     from porotpu_torch.ops.dia import DIA
     from porotpu_torch.ops.sparse import ELL
     from porotpu_torch.parallel import sharding
@@ -375,9 +378,20 @@ def _rank_cases(mesh, rng):
         # exchanges of one square halo product, this rank's count
         sh = sharding.shard_ell(A.block("s", "s"), mesh)
         sharding.reset_collectives()
-        sh.matvec(field_vec((A.sizes["s"],))[1])
+        xs = field_vec((A.sizes["s"],))[1]
+        dia_kernel.reset_counts()
+        y = sh.matvec(xs)
         out["halo"] = {"dist": sh.dist[0], "exchanges": sum(
             n for (op, _), n in sharding.COLLECTIVES.items() if op == "exchange")}
+        # gloo's own choice (one launch after the wait), then the split forced
+        launches = [dia_kernel.COUNTS["plain"]]
+        own, mesh.halo_split = mesh.halo_split, True
+        dia_kernel.reset_counts()
+        y_split = sh.matvec(xs)
+        mesh.halo_split = own
+        launches.append(dia_kernel.COUNTS["plain"])
+        out["halo_split"] = {"mesh": own, "interior": sh.split, "launches": launches,
+                             "equal": bool(torch.equal(y, y_split))}
         # outer cg on a symmetric banded operator, reduced over the ranks
         S = banded_random(128, (-5, -2, 0, 2, 5), rng)
         D = DIA.from_csr((S + S.T + 20 * sp.eye(128)).tocsr(), torch.float64)
