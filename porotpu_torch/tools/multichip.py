@@ -58,6 +58,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -362,8 +363,8 @@ def report(out) -> str:
         split, unsplit = zip(*out["split_pairs"])
         lines.append(f"  pairs of sharded solves, split / unsplit s: "
                      + ", ".join(f"{a:.4f} / {b:.4f}" for a, b in out["split_pairs"])
-                     + f"; medians {sorted(split)[len(split) // 2]:.4f} / "
-                     f"{sorted(unsplit)[len(unsplit) // 2]:.4f}")
+                     + f"; medians {statistics.median(split):.4f} / "
+                     f"{statistics.median(unsplit):.4f}")
     if out["fp_iters"] or out["fp_iters_unsharded"]:
         lines.append(f"  inner fgmres+fs iterations an apply: sharded {out['fp_iters']}, "
                      f"unsharded {out['fp_iters_unsharded']}")
