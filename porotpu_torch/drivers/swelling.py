@@ -9,6 +9,7 @@ lines.  It runs on the card and raises without one, unless
 """
 
 from porotpu_torch.models import benchmarks
+from porotpu_torch.utils import trace
 from porotpu_torch.utils.parser import Parser
 
 
@@ -24,6 +25,7 @@ def setup(argv=None, overrides=None):
 
 def main(argv=None):
     problem = setup(argv)
+    trace.enable()  # print_timings reads the spans of the solve
     problem.solve()
     problem.print_timings()
     return problem

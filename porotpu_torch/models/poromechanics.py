@@ -56,6 +56,7 @@ from ..solvers.aar import aar
 from ..solvers.cg import cg
 from ..solvers.convergence import FieldwiseTest
 from ..solvers.gmres import fgmres
+from ..utils import trace
 from .abstract import AbstractPhysics, log
 from .forms import FIELDS, PC_TYPES, PoromechanicsAssembler
 
@@ -769,12 +770,13 @@ class Poromechanics(AbstractPhysics):
             from ..parallel import sharding
 
             b = sharding.shard_vector(b, self.row_mesh, self.padded_sizes)
-        b = b.to(self.device)
+        b = trace.host_copy(b, self.device)
         if self.H_dev is not None:
             b = b + self._rhs_hist()
         b[self.bc_dofs] = self.bc_vals
         return b
 
+    @trace.spanned(trace.STEP)
     def solve_time_step(self, t):
         if self.first_timestep:
             self.create_solver()
@@ -789,8 +791,7 @@ class Poromechanics(AbstractPhysics):
                 break
             res = self._solve(b, res.x)
             total_its += res.iters
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        trace.synchronize(self.device)
         self.t_solve_total += _time.perf_counter() - t0
 
         self.sol = res.x
@@ -846,71 +847,30 @@ class Poromechanics(AbstractPhysics):
         return sol.cpu().numpy()[self.pad_index]
 
     # ------------------------------------------------------------------
-    def _stage_seconds(self, fn, v, reps):
-        """Seconds per call of ``fn(v)``: one warm-up, then ``reps`` calls
-        between two CUDA events on the card (the device's time, launches
-        queued back to back), or the host's clock on the CPU."""
-        with torch.inference_mode():
-            fn(v)
-            if self.device.type != "cuda":
-                t0 = _time.perf_counter()
-                for _ in range(reps):
-                    fn(v)
-                return (_time.perf_counter() - t0) / reps
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize(self.device)
-            start.record()
-            for _ in range(reps):
-                fn(v)
-            end.record()
-            torch.cuda.synchronize(self.device)
-            return start.elapsed_time(end) / 1e3 / reps
-
-    def pc_timings(self, reps: int = 10) -> dict:
-        """Seconds per application of each stage of the block PC and of the
-        whole PC, each timed standalone on a vector of ones
-        (porotpu/models/poromechanics.py:977-1041); under CastPC at the
-        PC's own dtype.  A 3-way apply solves the solid and the fluid twice
-        and the pressure and the diffusion once each."""
-        pc, dtype = self.pc, self.dtype
-        if isinstance(pc, CastPC):
-            pc, dtype = pc.inner, pc.in_dtype
-
-        def sec(fn, n):
-            return self._stage_seconds(fn, torch.ones(n, dtype=dtype, device=self.device), reps)
-
-        if pc.three_way:
-            out = {
-                "solid": 2 * sec(pc.solve_s, pc.ns),
-                "fluid": 2 * sec(pc.solve_f, pc.nf),
-                "pressure": sec(pc.solve_p, pc.np_) + sec(pc.solve_diff, pc.np_),
-            }
-        else:
-            out = {
-                "solid": sec(pc.solve_s, pc.ns),
-                "fluid-pressure": sec(pc.solve_fp, pc.nf + pc.np_),
-            }
-        out["total"] = sec(pc, pc.ns + pc.nf + pc.np_)
-        return out
-
     def print_timings(self):
-        """The solver's total time and the PC's stage breakdown, in the
-        format of porotpu/models/poromechanics.py:1043-1085 (reference
-        lib/Preconditioner.py:252-260): the stages, timed standalone, are
-        scaled to sum to the whole PC's time."""
+        """The solver's total time, then what the spans (``utils.trace``)
+        recorded inside the solve, when tracing was on: the block PC's
+        applies and its stages in the format of the reference
+        (lib/Preconditioner.py:252-260; 3-way: Pressure is ``pc.p`` and
+        ``pc.diff``), the AMG hierarchies' host setup, and the host syncs
+        of the steps.  The PC's seconds are the host's, spent issuing each
+        stage; on the card the device runs behind them.  With nothing
+        recorded, the Solver line alone."""
         log("\n===== Timing Solver: {:.3f}s".format(self.t_solve_total))
-        if self.pc_applies <= 0 or getattr(self, "pc", None) is None:
-            return
-        st = self.pc_timings()
-        napp = self.pc_applies
-        log(
-            "\n===== Timing preconditioner: {:.3f}s ({} applications; "
-            "stages timed standalone, rescaled to the total)".format(st["total"] * napp, napp)
-        )
-        stages = [k for k in st if k != "total"]
-        ssum = sum(st[k] for k in stages)
-        scale = (st["total"] / ssum) if ssum > 0 else 1.0
-        log("\n".join(
-            "\t{} solver: {:.3f}s".format(k.capitalize(), st[k] * scale * napp) for k in stages
-        ))
+        tot = trace.totals()
+        app = tot.get(trace.PC_APPLY)
+        if app is not None:
+            if self.three_way:
+                stages = (("Solid", "pc.s"), ("Fluid", "pc.f"), ("Pressure", "pc.p", "pc.diff"))
+            else:
+                stages = (("Solid", "pc.s"), ("Fluid-pressure", "pc.fp"))
+            log("\n===== Timing preconditioner: {:.3f}s ({} applications; host seconds issuing "
+                "each stage inside the solve)".format(app.seconds, app.count))
+            log("\n".join("\t{} solver: {:.3f}s".format(
+                name, sum(tot[k].seconds for k in spans if k in tot)) for name, *spans in stages))
+        amg = tot.get(trace.AMG_SETUP)
+        if amg is not None:
+            log("\n===== Timing AMG setup: {:.3f}s ({} hierarchies)".format(amg.seconds, amg.count))
+        step = tot.get(trace.STEP)
+        if step is not None:
+            log("\n===== Host syncs: {} in {} steps".format(trace.host_syncs(), step.count))

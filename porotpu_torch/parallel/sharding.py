@@ -59,6 +59,8 @@ import socket
 import torch
 import torch.distributed as dist
 
+from ..utils import trace
+
 COLLECTIVES = collections.Counter()
 # halo messages this rank sent, by the receiving rank of the mesh
 SENT = collections.Counter()
@@ -85,8 +87,8 @@ class PendingExchange:
             work.wait()
         self.works = []
         if self.staged[0] is not None:
-            self.from_left.copy_(self.staged[0])
-            self.from_right.copy_(self.staged[1])
+            dev = self.from_left.device
+            self.from_left, self.from_right = (trace.host_copy(s, dev) for s in self.staged)
             self.staged = (None, None)
         return self.from_left, self.from_right
 
@@ -128,7 +130,7 @@ class RowMesh:
                 COLLECTIVES["host_exchange", n] += 1
 
     def _host(self, t):
-        return t.cpu() if self.staged else t
+        return trace.host_copy(t, "cpu") if self.staged else t
 
     def exchange(self, to_left: torch.Tensor, to_right: torch.Tensor):
         """One ``batch_isend_irecv`` with the two neighbours: ``to_left``
@@ -172,9 +174,9 @@ class RowMesh:
 
     def _allreduce(self, t, op, name):
         COLLECTIVES[name, t.numel()] += 1
-        buf = t.detach().to("cpu", copy=True) if self.staged else t.detach().clone()
+        buf = trace.host_copy(t.detach(), "cpu", copy=True) if self.staged else t.detach().clone()
         dist.all_reduce(buf, op=op, group=self.group)
-        return buf.to(t.device) if self.staged else buf
+        return trace.host_copy(buf, t.device) if self.staged else buf
 
     def allreduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         return self._allreduce(t, dist.ReduceOp.SUM, "allreduce")
@@ -193,7 +195,7 @@ class RowMesh:
             parts = [torch.empty_like(src) for _ in range(self.world)]
             dist.all_gather(parts, src, group=self.group)
             out = torch.cat(parts)
-        return out.to(t.device) if self.staged else out
+        return trace.host_copy(out, t.device) if self.staged else out
 
     # -- the solvers' reductions ----------------------------------------
 

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dia import device_matrix
+from ..utils import trace
 
 # ---------------------------------------------------------------------------
 # host setup: copies of porotpu/precond/amg.py (36-264, 371-574)
@@ -287,6 +288,7 @@ class AMG(nn.Module):
         return self._cycle(0, b)
 
 
+@trace.spanned(trace.AMG_SETUP)
 def amg_setup(
     A: sp.csr_matrix,
     dofs_per_node: int = 1,

@@ -14,12 +14,22 @@ do not couple.
 
 ``CastPC`` applies a PC built at a lower precision inside a
 higher-precision outer solve.
+
+With tracing on (``utils.trace``) an apply is one ``pc.apply`` span and
+each inner solve in it one ``pc.<label>`` span (``inner.BLOCK_LABELS``);
+the couplings run in the apply's span, outside every stage's.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from ..utils import trace
+from .inner import BLOCK_LABELS
+
+# the span of each inner solve: pc.s, pc.fp, pc.f, pc.p, pc.diff
+STAGE_SPANS = {attr: "pc." + label for attr, label in BLOCK_LABELS.items()}
 
 
 class BlockPreconditioner(nn.Module):
@@ -43,24 +53,30 @@ class BlockPreconditioner(nn.Module):
         self.register_buffer("diff_rhs_mask", diff_rhs_mask)
         self.w1, self.w2 = float(w1), float(w2)
 
+    @trace.spanned(trace.PC_APPLY)
     def forward(self, x):
         if self.three_way:
             return self._three_way(x)
         ns = self.ns
-        ys = self.solve_s(x[:ns])
+        ys = self._stage("solve_s", x[:ns])
         coup = torch.cat([self.Pfs.matvec(ys), self.Pps.matvec(ys)])
-        yfp = self.solve_fp(x[ns:] - coup)
+        yfp = self._stage("solve_fp", x[ns:] - coup)
         return torch.cat([ys, yfp])
+
+    def _stage(self, attr, b):
+        """The inner solve ``attr`` of ``b``, under its stage's span."""
+        with trace.span(STAGE_SPANS[attr]):
+            return getattr(self, attr)(b)
 
     def _three_way(self, x):
         ns, nf = self.ns, self.nf
         xs, xf, xp = x[:ns], x[ns : ns + nf], x[ns + nf :]
-        yp = self.solve_p(xp)
-        yp_diff = self.solve_diff(xp * self.diff_rhs_mask)
-        yf = self.solve_f(xf - self.Pfp.matvec(yp))
-        yf_diff = self.solve_f(xf - self.Pfp.matvec(yp_diff))
-        ys = self.solve_s(xs - self.Psf.matvec(yf) - self.Psp.matvec(yp))
-        ys_diff = self.solve_s(xs - self.Psf.matvec(yf_diff) - self.Psp.matvec(yp_diff))
+        yp = self._stage("solve_p", xp)
+        yp_diff = self._stage("solve_diff", xp * self.diff_rhs_mask)
+        yf = self._stage("solve_f", xf - self.Pfp.matvec(yp))
+        yf_diff = self._stage("solve_f", xf - self.Pfp.matvec(yp_diff))
+        ys = self._stage("solve_s", xs - self.Psf.matvec(yf) - self.Psp.matvec(yp))
+        ys_diff = self._stage("solve_s", xs - self.Psf.matvec(yf_diff) - self.Psp.matvec(yp_diff))
         y_fs = torch.cat([ys, yf, yp])
         y_diff = torch.cat([ys_diff, yf_diff, yp_diff])
         return self.w1 * y_fs + self.w2 * y_diff

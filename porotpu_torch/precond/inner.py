@@ -39,6 +39,7 @@ from ..ops.dia import device_matrix
 from ..solvers.cg import cg_fixed
 from ..solvers.chebyshev import chebyshev
 from ..solvers.gmres import fgmres
+from ..utils import trace
 from .amg import _power_lmax, amg_setup
 
 
@@ -128,8 +129,8 @@ class InnerSolver(nn.Module):
         x = self._solve(b)
         if self.monitor and "A" in self.mods:
             res = b - self.mods["A"].matvec(x)
-            r = (torch.linalg.vector_norm(res) if self.mesh is None
-                 else self.mesh.norm(res)).item()
+            r = trace.host_read(torch.linalg.vector_norm(res) if self.mesh is None
+                                else self.mesh.norm(res))
             print(MONITOR_LINE.format(label=self.label or self.kind, r=r), flush=True)
         return x
 

@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import trace
 from .anderson import AndersonAccelerator, alpha_to, gram_read, masked_gram_alpha
 from .gmres import _np_dtype
 from .result import SolveResult
@@ -68,7 +69,7 @@ def aar(
 
     f_unprec = b - A(x0)
     norm = torch.linalg.norm if mesh is None else mesh.norm
-    error0 = dt.type(norm(f_unprec).item())
+    error0 = dt.type(trace.host_read(norm(f_unprec)))
     error0 = error0 if error0 > 0 else dt.type(1.0)
     # the first pair's f is preconditioned (lib/AAR.py:133-137); error0
     # stays unpreconditioned (lib/AAR.py:56-58)

@@ -29,6 +29,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils import trace
+
 
 @dataclass
 class AndersonState:
@@ -66,10 +68,10 @@ def gram_read(v, F=None, fk=None, mesh=None) -> np.ndarray:
     if mesh is None:
         if v is not None:
             parts.insert(0, torch.linalg.norm(v)[None])
-        return torch.cat(parts).cpu().numpy()
+        return trace.host_read(torch.cat(parts), numpy=True)
     if v is not None:
         parts.insert(0, torch.dot(v, v)[None])
-    host = mesh.allreduce_sum(torch.cat(parts)).cpu().numpy()
+    host = trace.host_read(mesh.allreduce_sum(torch.cat(parts)), numpy=True)
     if v is not None:
         host[0] = np.sqrt(host[0])
     return host
@@ -84,7 +86,7 @@ def gram_ls_alpha(F, fk, nhist, reg=0.0, mesh=None):
     host = gram_read(None, F, fk, mesh)
     G, c = host[: m * m].reshape(m, m), host[m * m :]
     alpha = masked_gram_alpha(G, c, int(nhist), reg)
-    return torch.from_numpy(alpha).to(F.device)
+    return trace.host_copy(torch.from_numpy(alpha), F.device)
 
 
 def alpha_to(alpha: np.ndarray, like: torch.Tensor) -> torch.Tensor:

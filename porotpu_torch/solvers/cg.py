@@ -6,7 +6,8 @@ the unpreconditioned residual 2-norm against max(atol, rtol ||b||), or
 with ``fieldwise=`` the field-wise test ``ea < atol or er < rtol``; a
 residual above ``divtol`` ends the run as diverged.  The test is computed
 on the device and read back once an iteration, the only host sync of
-the loop (and one before it, for the first residual).
+the loop (and one before it, for the first residual), through
+``utils.trace.host_read``, which counts it.
 
 ``cg_fixed``: the inner solves of the ``cg`` and ``cg+amg`` kinds, a
 static count of CG steps and no convergence test, so the loop never
@@ -22,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import trace
 from .convergence import FieldwiseTest
 from .result import SolveResult
 
@@ -62,7 +64,7 @@ def cg(
         else:
             rn = norm(r)
             done = rn <= tol2
-        done_h, rn_h = torch.stack([done.to(rn.dtype), rn]).tolist()
+        done_h, rn_h = trace.host_read(torch.stack([done.to(rn.dtype), rn]))
         return bool(done_h), rn_h
 
     history = np.full((maxiter + 1,), np.nan, dtype=np.float32)

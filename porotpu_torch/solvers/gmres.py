@@ -7,7 +7,9 @@ Orthogonalization is CGS2 (two classical Gram-Schmidt passes as
 torch.matmul).  The small Hessenberg problem — the Givens
 recurrence, the masked triangular solve and the residual estimate — runs
 on the host in the solve's dtype: its column arrives with the one host
-sync each iteration makes for the convergence check.  JAX's
+sync each iteration makes for the convergence check.  Every read back
+and every copy of host coefficients to the device goes through
+``utils.trace`` (``host_read``, ``host_copy``), which counts them.  JAX's
 ``while_loop`` becomes a Python loop.
 
 Convergence is on the unpreconditioned residual 2-norm or, with
@@ -33,6 +35,7 @@ import numpy as np
 import scipy.linalg as sla
 import torch
 
+from ..utils import trace
 from .anderson import AndersonAccelerator
 from .convergence import FieldwiseTest
 from .result import SolveResult
@@ -54,7 +57,7 @@ def _fieldwise_check(fw: FieldwiseTest, r, atol, rtol):
     """(converged, error_abs) of the field-wise test on residual r: one sync."""
     ea, er = fw.errors(r)
     done = (ea < atol) | (er < rtol)
-    ea_h, done_h = torch.stack([ea.double(), done.double()]).tolist()
+    ea_h, done_h = trace.host_read(torch.stack([ea.double(), done.double()]))
     return bool(done_h), ea_h
 
 
@@ -70,13 +73,13 @@ def _gmres(A, b, x0, M, restart, rtol, atol, maxiter, flexible, fieldwise, divto
     n = b.shape[0]
     n_glob = n if mesh is None else n * mesh.world  # every rank holds equal slabs
     dt = _np_dtype(b.dtype)
-    bnorm = dt.type(norm(b).item())
+    bnorm = dt.type(trace.host_read(norm(b)))
     tol = np.maximum(dt.type(atol), dt.type(rtol) * bnorm)
     history = np.full((maxiter + 1,), np.nan, dtype=np.float32)
     if fieldwise is not None:
         # ||r||_inf >= ||r||_2 / sqrt(n): the field-wise test cannot pass
         # while |g[k+1]| >= sqrt(n) * fw_tol, so skip the reconstruction
-        b0max = dt.type(torch.max(fieldwise.b0_norms).item())
+        b0max = dt.type(trace.host_read(torch.max(fieldwise.b0_norms)))
         fw_tol = np.maximum(dt.type(atol), dt.type(rtol) * b0max)
         fw_tol = fw_tol * np.sqrt(dt.type(n_glob))
     acc = AndersonAccelerator(pc_accel_order, mesh=mesh) if pc_accel_order > 0 else None
@@ -88,9 +91,9 @@ def _gmres(A, b, x0, M, restart, rtol, atol, maxiter, flexible, fieldwise, divto
         beta_t = norm(r0)
         if fieldwise is not None:
             done, res = _fieldwise_check(fieldwise, r0, atol, rtol)
-            beta = dt.type(beta_t.item())
+            beta = dt.type(trace.host_read(beta_t))
         else:
-            beta = dt.type(beta_t.item())
+            beta = dt.type(trace.host_read(beta_t))
             done, res = bool(beta <= tol), float(beta)
         div = res > divtol
         history[it0] = res
@@ -119,7 +122,7 @@ def _gmres(A, b, x0, M, restart, rtol, atol, maxiter, flexible, fieldwise, divto
             w = w - h2 @ Vk
             hk1_t = norm(w)
             col = np.zeros((m + 1,), dtype=dt)
-            col[: k + 2] = torch.cat([h1 + h2, hk1_t[None]]).cpu().numpy()
+            col[: k + 2] = trace.host_read(torch.cat([h1 + h2, hk1_t[None]]), numpy=True)
             hk1 = col[k + 1]
             V[k + 1] = w / hk1_t if hk1 > 0 else w
             if Ho is not None:
@@ -148,7 +151,7 @@ def _gmres(A, b, x0, M, restart, rtol, atol, maxiter, flexible, fieldwise, divto
                     zeta = np.zeros((m + 1,), dtype=dt)
                     zeta[0] = beta
                     zeta = zeta - Ho[:, :m] @ y
-                    zt = torch.from_numpy(zeta[: k + 2]).to(b.device)
+                    zt = trace.host_copy(torch.from_numpy(zeta[: k + 2]), b.device)
                     done, res = _fieldwise_check(
                         fieldwise, zt @ V[: k + 2], atol, rtol
                     )
@@ -162,7 +165,7 @@ def _gmres(A, b, x0, M, restart, rtol, atol, maxiter, flexible, fieldwise, divto
 
         if k == 0:
             return x0c, it0, res, done, div
-        y = torch.from_numpy(_triangular_coeffs(H, g, k, m)[:k]).to(b.device)
+        y = trace.host_copy(torch.from_numpy(_triangular_coeffs(H, g, k, m)[:k]), b.device)
         if flexible:
             x = x0c + y @ Z[:k]
         else:
@@ -178,7 +181,7 @@ def _gmres(A, b, x0, M, restart, rtol, atol, maxiter, flexible, fieldwise, divto
     if fieldwise is not None:
         done, res = _fieldwise_check(fieldwise, r_init, atol, rtol)
     else:
-        res = float(norm(r_init).item())
+        res = float(trace.host_read(norm(r_init)))
         done = bool(dt.type(res) <= tol)
     div = res > divtol
     x, it = x0, 0

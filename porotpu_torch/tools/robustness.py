@@ -284,10 +284,12 @@ def run_cell(cell, device, cache_dir, record):
     from ..ops import dia_kernel
     from ..ops.sparse import ELL_PRODUCTS
     from ..solvers.convergence import FieldwiseTest
+    from ..utils import trace
 
     drv = {"swelling": swelling, "footing": footing}[cell.driver]
     t0 = time.perf_counter()
     problem = drv.setup(cell.argv(device), cell.overrides)
+    trace.enable()  # print_timings reads the spans of the setup and the solve
     cuda = problem.device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(problem.device)
