@@ -46,7 +46,7 @@ from ..fem.bcs import bc_dofs_values, zero_rows
 from ..fem.dofmap import FunctionSpace, MixedSpace, vertex_embedding
 from ..ops.dia import device_matrix
 from ..ops.sparse import FieldMatrix
-from ..precond.amg import rigid_body_modes
+from ..precond.amg import host_threads, rigid_body_modes
 from ..precond.block import BlockPreconditioner, CastPC
 from ..precond.inner import (
     ITERATED, InnerConfig, InnerSolver, build_inner_solver, remap_inner_iters, set_inner_monitor,
@@ -852,10 +852,11 @@ class Poromechanics(AbstractPhysics):
         recorded inside the solve, when tracing was on: the block PC's
         applies and its stages in the format of the reference
         (lib/Preconditioner.py:252-260; 3-way: Pressure is ``pc.p`` and
-        ``pc.diff``), the AMG hierarchies' host setup, and the host syncs
-        of the steps.  The PC's seconds are the host's, spent issuing each
-        stage; on the card the device runs behind them.  With nothing
-        recorded, the Solver line alone."""
+        ``pc.diff``), the AMG hierarchies' host setup with its sparse
+        products and how many of them ran in row blocks on how many
+        threads, and the host syncs of the steps.  The PC's seconds are
+        the host's, spent issuing each stage; on the card the device runs
+        behind them.  With nothing recorded, the Solver line alone."""
         log("\n===== Timing Solver: {:.3f}s".format(self.t_solve_total))
         tot = trace.totals()
         app = tot.get(trace.PC_APPLY)
@@ -870,7 +871,11 @@ class Poromechanics(AbstractPhysics):
                 name, sum(tot[k].seconds for k in spans if k in tot)) for name, *spans in stages))
         amg = tot.get(trace.AMG_SETUP)
         if amg is not None:
-            log("\n===== Timing AMG setup: {:.3f}s ({} hierarchies)".format(amg.seconds, amg.count))
+            gal = tot.get(trace.GALERKIN, trace.Total())
+            log("\n===== Timing AMG setup: {:.3f}s ({} hierarchies); Galerkin {:.3f}s in {} "
+                "products, {} in row blocks on {} threads".format(
+                    amg.seconds, amg.count, gal.seconds, gal.count,
+                    trace.counts().get(trace.ROW_BLOCKED, 0), host_threads()))
         step = tot.get(trace.STEP)
         if step is not None:
             log("\n===== Host syncs: {} in {} steps".format(trace.host_syncs(), step.count))

@@ -5,7 +5,10 @@ lattice-box aggregation when node coordinates are given, else greedy
 strength-graph aggregation over nodes; then the tentative prolongator
 from the near-nullspace, Jacobi prolongator smoothing, band-wise P
 truncation, Galerkin coarse operators, 128-row padding of the coarse
-levels and a dense coarse inverse.  The V-cycle runs on the device:
+levels and a dense coarse inverse.  The setup's sparse products run in
+row blocks on a pool of host threads (``matmul``), each block scipy's
+own product, so that the hierarchy is the whole product's bit for bit.
+The V-cycle runs on the device:
 Chebyshev smoothing and the transfers, every banded product through
 ``ops.dia`` (kernel K1 on CUDA).  ``device_matrix`` picks each level's
 storage format as porotpu's: a greedy prolongator stays banded only
@@ -13,6 +16,12 @@ while its aggregates are lattice-near, else it stores ELL.
 """
 
 from __future__ import annotations
+
+import concurrent.futures
+import functools
+import math
+import os
+import threading
 
 import numpy as np
 import scipy.linalg as sla
@@ -171,6 +180,88 @@ def _drop_weak_p_diagonals(P: sp.csr_matrix, emb: np.ndarray, tol: float):
     return sp.csr_matrix(
         (coo.data[keep], (coo.row[keep], coo.col[keep])), shape=P.shape
     )
+
+
+# the multiply-adds of scipy's product (for each entry of A, the nonzeros
+# of the row of B it picks) a row block carries: about 10 ms of one core;
+# under two blocks' worth a product stays whole, the pool's hand-offs
+# would cost more than they gain
+_BLOCK_WORK = 4_000_000
+_BLOCKS_PER_THREAD = 4
+_pool = None
+_pool_lock = threading.Lock()
+
+
+@functools.cache
+def host_threads() -> int:
+    """The cores this process may run on, capped by its cgroup's CPU
+    quota where one is set: the size of the products' thread pool."""
+    n = len(os.sched_getaffinity(0))
+    try:
+        with open("/sys/fs/cgroup/cpu.max") as f:
+            quota, period = f.read().split()[:2]
+        if quota != "max":
+            n = min(n, max(1, math.ceil(int(quota) / int(period))))
+    except (OSError, ValueError):
+        pass
+    return n
+
+
+def _thread_pool() -> concurrent.futures.ThreadPoolExecutor:
+    global _pool
+    with _pool_lock:
+        if _pool is None:
+            _pool = concurrent.futures.ThreadPoolExecutor(
+                host_threads(), thread_name_prefix="amg-matmul")
+        return _pool
+
+
+def matmul(A: sp.spmatrix, B: sp.spmatrix) -> sp.csr_matrix:
+    """``A @ B`` as scipy computes it, in row blocks on the thread pool.
+
+    Row i of scipy's product (sparsetools' SMMP) reads row i of A and all
+    of B, and drops the sums that cancel to zero.  So blocks of
+    contiguous rows of A, each multiplied by B in scipy's own product
+    (which releases the GIL), stacked in order, give the whole product's
+    ``data``, ``indices`` and ``indptr`` bit for bit, its column order
+    within a row unsorted as scipy leaves it.  The next level sums in
+    that order.  The blocks split the product's work evenly, one per
+    ``_BLOCK_WORK`` multiply-adds, up to ``_BLOCKS_PER_THREAD`` a thread
+    so that uneven blocks even out; a product of fewer than two blocks,
+    or on one core, stays whole.
+    """
+    with trace.span(trace.GALERKIN):
+        # scipy's own conversions: a DIA factor (sp.diags) to CSR, B to CSR
+        A, B = A.tocsr(), B.tocsr()
+        # work[i]: the multiply-adds of rows 0..i-1
+        work = np.concatenate([[0], np.cumsum(np.diff(B.indptr)[A.indices])])[A.indptr]
+        threads = host_threads()
+        nb = min(int(work[-1]) // _BLOCK_WORK, threads * _BLOCKS_PER_THREAD, A.shape[0])
+        if threads < 2 or nb < 2:
+            return A @ B
+        cuts = np.searchsorted(work, work[-1] * np.arange(1, nb) // nb, side="right") - 1
+        bounds = np.unique(np.concatenate([[0], cuts, [A.shape[0]]]))
+        ptr = A.indptr
+
+        def block(r0, r1):
+            a = A.__class__(
+                (A.data[ptr[r0]:ptr[r1]], A.indices[ptr[r0]:ptr[r1]], ptr[r0:r1 + 1] - ptr[r0]),
+                shape=(r1 - r0, A.shape[1]),
+            )
+            return a @ B
+
+        pool = _thread_pool()
+        parts = [f.result() for f in [pool.submit(block, r0, r1)
+                                      for r0, r1 in zip(bounds[:-1], bounds[1:])]]
+        trace.count(trace.ROW_BLOCKED)
+        nnz = np.cumsum([0] + [p.nnz for p in parts])
+        indptr = np.concatenate(
+            [[0]] + [p.indptr[1:].astype(np.int64) + off for p, off in zip(parts, nnz[:-1])])
+        return A.__class__(
+            (np.concatenate([p.data for p in parts]),
+             np.concatenate([p.indices for p in parts]), indptr),
+            shape=(A.shape[0], B.shape[1]),
+        )
 
 
 def _power_lmax(A: sp.csr_matrix, dinv: np.ndarray, iters=15, seed=0) -> float:
@@ -375,10 +466,10 @@ def amg_setup(
         Dinv = sp.diags(dinv)
         P = T
         for _ in range(max(smooth_degree, 0)):
-            P = (P - (4.0 / (3.0 * lmax)) * (Dinv @ (A @ P))).tocsr()
+            P = (P - (4.0 / (3.0 * lmax)) * matmul(Dinv, matmul(A, P))).tocsr()
         if p_drop_tol > 0.0:
             P = _drop_weak_p_diagonals(P, emb, p_drop_tol)
-        Ac = (P.T.tocsr() @ (A @ P)).tocsr()
+        Ac = matmul(P.T.tocsr(), matmul(A, P))
         # row-pad the coarse levels (li >= 1) to 128: unit diagonal on the
         # pad rows of A, zero pad rows of P, dinv = 1 — fully decoupled
         rowpad = (-A.shape[0]) % 128 if levels else 0

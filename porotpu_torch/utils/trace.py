@@ -5,6 +5,7 @@
     problem.solve()
     trace.totals()["pc.apply"]      # Total(count, seconds, host_syncs)
     trace.host_syncs()
+    trace.counts()["setup.galerkin.row_blocked"]
 
 While tracing is on, a span (``span(name)``, a context manager) appends
 one record: its name, its start and end on ``time.perf_counter_ns``, the
@@ -19,7 +20,8 @@ the device's queue to drain: ``host_read`` (a blocking device-to-host
 read), ``host_copy`` (a blocking copy between the host and the device)
 and ``synchronize``.  Each adds 1 to the record of the innermost open
 span and to the total.  They count on every device, so that a run on the
-CPU counts the waits a run on the card makes.
+CPU counts the waits a run on the card makes.  ``count(name)`` adds to a
+named counter of its own (``counts``).
 
 Off, ``span`` returns one shared no-op context manager, the sync points
 only do their work, and nothing is recorded or called in
@@ -32,9 +34,15 @@ The spans, each at one place in the program:
 - ``pc.s``, ``pc.f``, ``pc.p``, ``pc.diff``, ``pc.fp``: each inner solve
   of the block PC, named by ``precond.inner.BLOCK_LABELS``;
 - ``setup.amg``: ``precond.amg.amg_setup``, each AMG hierarchy's host
-  setup.
+  setup;
+- ``setup.galerkin``: ``precond.amg.matmul``, each sparse product of the
+  hierarchy's setup (smoothing P, the Galerkin coarse operator), inside
+  ``setup.amg``.
 
-``Poromechanics.print_timings`` reads all of them and the counter.  No
+The named counters: ``setup.galerkin.row_blocked``, the products that
+ran in row blocks on the host's thread pool.
+
+``Poromechanics.print_timings`` reads all of them and the counters.  No
 span goes below a block PC stage: a product or a launch has none.
 """
 
@@ -50,6 +58,8 @@ import torch
 STEP = "step"
 PC_APPLY = "pc.apply"
 AMG_SETUP = "setup.amg"
+GALERKIN = "setup.galerkin"
+ROW_BLOCKED = "setup.galerkin.row_blocked"
 
 _NOOP = contextlib.nullcontext()
 
@@ -86,6 +96,7 @@ class _State:
     open: list = []  # indices of the open records, innermost last
     steps = 0  # step spans opened since the last reset
     syncs = 0  # sync points since the last reset, inside and outside spans
+    counts: dict = {}  # the named counters since the last reset
 
 
 _S = _State()
@@ -112,6 +123,7 @@ def reset():
     _S.records = []
     _S.steps = 0
     _S.syncs = 0
+    _S.counts = {}
 
 
 class _Span:
@@ -191,6 +203,17 @@ def synchronize(device):
         _count()
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def count(name: str):
+    """Add 1 to the counter ``name`` while tracing is on."""
+    if _S.on:
+        _S.counts[name] = _S.counts.get(name, 0) + 1
+
+
+def counts() -> dict[str, int]:
+    """The named counters since the last reset."""
+    return dict(_S.counts)
 
 
 def records() -> list[Record]:

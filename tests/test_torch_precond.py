@@ -9,17 +9,25 @@ host build (tests the copied host setup as well — its band offsets,
 level counts, shapes and lmax must equal porotpu's).  The configuration
 is swelling-3d N=3 with the bench overrides and ``amg coarse size`` 100,
 so the solid AMG has two levels.
+
+The host setup's sparse products (``amg.matmul``), forced into row blocks
+by a lowered threshold, are scipy's whole ``A @ B`` bit for bit, on that
+solid block's Galerkin product and on edge cases; and the solid block's
+hierarchy, box and greedy, is the one its whole products give, bit for
+bit, with the counter saying which products ran in blocks.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 from porotpu.models import benchmarks as jbench
 from porotpu_torch.convert import to_torch
 from porotpu_torch.models.benchmarks import BENCH_OVERRIDES, swelling_3d
+from porotpu_torch.utils import trace
 from torch_k1_cases import one_blas_thread  # noqa: F401
 
 torch.set_num_threads(1)
@@ -252,3 +260,156 @@ def test_cg_inner_kinds_on_zero_rhs_return_zeros(kind, solid_block):
     with torch.inference_mode():
         y = ts(torch.zeros(A.shape[0], dtype=torch.float64))
     assert torch.equal(y, torch.zeros_like(y))
+
+
+# -- the setup's row-blocked sparse products (precond/amg.py:matmul) ----------
+
+
+@pytest.fixture
+def blocked(monkeypatch):
+    """A row block a 50 multiply-adds, up to 16 blocks (4 threads' worth),
+    whatever cores this host has; tracing on."""
+    from porotpu_torch.precond import amg
+
+    monkeypatch.setattr(amg, "host_threads", lambda: 4)
+    monkeypatch.setattr(amg, "_BLOCK_WORK", 50)
+    trace.disable()
+    trace.reset()
+    trace.enable()
+    yield amg
+    trace.disable()
+    trace.reset()
+
+
+def _same_csr(got, want):
+    """``got`` is ``want`` bit for bit: class, shape, dtypes, the stored
+    order of every array, and the sorted flag."""
+    assert type(got) is type(want) and got.shape == want.shape
+    for name in ("data", "indices", "indptr"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), name
+    assert got.has_sorted_indices == want.has_sorted_indices
+
+
+def _galerkin_operands(solid_block, amg, monkeypatch):
+    """P^T and A P of the first level of the solid block's hierarchy."""
+    A, kw = solid_block
+    seen = []
+    real = amg.matmul
+
+    def record(X, Y):
+        seen.append((X, Y))
+        return real(X, Y)
+
+    with monkeypatch.context() as m:
+        m.setattr(amg, "matmul", record)
+        amg.amg_setup(A, kw["dofs_per_node"], kw["near_nullspace"], coarse_size=100,
+                      coords=kw["coords"], dtype=torch.float64)
+    return seen[3]  # A T, D^-1 (A T), A P, then P^T (A P)
+
+
+def _empty_rows():
+    """Every seventh row and the last ten rows empty."""
+    keep = (np.arange(400) % 7 != 0) & (np.arange(400) < 390)
+    A = sp.diags(keep.astype(float)) @ sp.random(400, 300, 0.05, format="csr", random_state=1)
+    return A.tocsr(), sp.random(300, 120, 0.1, format="csr", random_state=2)
+
+
+def _cancelling():
+    """A row whose product cancels to exact zeros among rows that do not."""
+    A = sp.random(300, 200, 0.05, format="lil", random_state=7)
+    A[10, :] = 0.0
+    A[10, 3], A[10, 5] = 1.0, -1.0
+    B = sp.random(200, 150, 0.1, format="lil", random_state=8)
+    B[5, :] = B[3, :]
+    return A.tocsr(), B.tocsr()
+
+
+MATMUL_CASES = {
+    "galerkin_unsorted": None,
+    "empty_rows": _empty_rows,
+    "more_blocks_than_rows": lambda: (
+        sp.random(3, 500, 0.5, format="csr", random_state=3),
+        sp.random(500, 80, 0.2, format="csr", random_state=4)),
+    "row_cancels_to_zero": _cancelling,
+    "float32": lambda: (
+        sp.random(500, 400, 0.02, format="csr", dtype=np.float32, random_state=5),
+        sp.random(400, 300, 0.05, format="csr", dtype=np.float32, random_state=6)),
+    "under_threshold": lambda: (
+        sp.random(20, 20, 0.1, format="csr", random_state=9),
+        sp.random(20, 20, 0.1, format="csr", random_state=10)),
+}
+
+
+@pytest.mark.parametrize("case", list(MATMUL_CASES))
+def test_row_blocked_matmul_is_scipys(case, blocked, solid_block, monkeypatch):
+    amg = blocked
+    if case == "galerkin_unsorted":
+        A, B = _galerkin_operands(solid_block, amg, monkeypatch)
+        trace.reset()
+    else:
+        A, B = MATMUL_CASES[case]()
+    work = np.diff(B.tocsr().indptr)[A.tocsr().indices].sum()
+    assert (work < 2 * amg._BLOCK_WORK) == (case == "under_threshold")
+    want = A @ B
+    got = amg.matmul(A, B)
+    _same_csr(got, want)
+    row_blocked = trace.counts().get(trace.ROW_BLOCKED, 0)
+    assert row_blocked == (0 if case == "under_threshold" else 1)
+    assert trace.totals()[trace.GALERKIN].count == 1
+    if case == "galerkin_unsorted":
+        assert not want.has_sorted_indices
+    if case == "empty_rows":
+        assert (np.diff(want.indptr) == 0).sum() >= 60
+    if case == "row_cancels_to_zero":
+        assert want.indptr[11] == want.indptr[10]
+    if case == "float32":
+        assert got.dtype == np.float32
+
+
+@pytest.mark.parametrize("aggregation", ["boxes", "greedy"])
+def test_row_blocked_hierarchy_is_the_whole_products(aggregation, blocked, solid_block,
+                                                      monkeypatch):
+    """``amg_setup`` with its products in row blocks builds the hierarchy
+    it builds with each product whole, bit for bit: every level's host A
+    and P as handed to ``device_matrix``, the stored operators, dinv, lmax
+    and the coarse inverse."""
+    amg = blocked
+    A, kw = solid_block
+    args = dict(dofs_per_node=kw["dofs_per_node"], B=kw["near_nullspace"], coarse_size=100,
+                coords=kw["coords"] if aggregation == "boxes" else None, dtype=torch.float64)
+
+    def build(block_work):
+        seen = []
+        real = amg.device_matrix
+
+        def record(M, *a, **k):
+            seen.append(M)
+            return real(M, *a, **k)
+
+        with monkeypatch.context() as m:
+            m.setattr(amg, "_BLOCK_WORK", block_work)
+            m.setattr(amg, "device_matrix", record)
+            return amg.amg_setup(A, **args), seen
+
+    whole, whole_csr = build(10**18)
+    assert trace.counts() == {}
+    trace.reset()
+    mine, mine_csr = build(50)
+    assert len(mine.levels) == len(whole.levels) >= 1
+    assert len(mine_csr) == len(whole_csr) == 2 * len(whole.levels)
+    for got, want in zip(mine_csr, whole_csr):
+        _same_csr(got, want)
+    assert [lv.lmax for lv in mine.levels] == [lv.lmax for lv in whole.levels]
+    got, want = mine.state_dict(), whole.state_dict()
+    assert list(got) == list(want) and any(k.endswith("dinv") for k in got)
+    assert "coarse_inv" in got
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+    # each level smooths P (A T, then D^-1 A T) and forms P^T (A P): all
+    # four of two blocks' work or more, each in row blocks
+    products = trace.totals()[trace.GALERKIN].count
+    assert products == 4 * len(mine.levels)
+    assert trace.counts()[trace.ROW_BLOCKED] == products
+    assert all(r.name == trace.AMG_SETUP for r in (trace.records()[x.parent]
+               for x in trace.records() if x.name == trace.GALERKIN))

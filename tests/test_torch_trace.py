@@ -16,8 +16,9 @@ on the CPU, through the swelling driver at N=3.
   escapes it.
 - Off, ``span`` is the one shared no-op and nothing is recorded or
   counted; ``annotate`` puts the spans on the profiler's timeline.
-- ``print_timings`` prints the reference's lines from the spans, and the
-  Solver line alone when nothing was recorded.
+- ``print_timings`` prints the reference's lines from the spans, the AMG
+  line with its ``setup.galerkin`` products and how many ran in row
+  blocks, and the Solver line alone when nothing was recorded.
 """
 
 import os
@@ -28,6 +29,7 @@ import pytest
 import torch
 
 from porotpu_torch.drivers import swelling
+from porotpu_torch.precond import amg
 from porotpu_torch.precond.amg import AMG
 from porotpu_torch.utils import trace
 from torch_k1_cases import one_blas_thread  # noqa: F401
@@ -242,8 +244,11 @@ def _timing_lines(capfd, problem):
 
 
 @pytest.mark.parametrize("name", list(RUNS))
-def test_print_timings_reads_the_spans(name, capfd):
-    problem = _problem(RUNS[name])
+def test_print_timings_reads_the_spans(name, capfd, monkeypatch):
+    # coarse size 20 gives the hierarchies levels, and so sparse products,
+    # each in row blocks where this host has more than one core
+    monkeypatch.setattr(amg, "_BLOCK_WORK", 1)
+    problem = _problem(RUNS[name], {"amg coarse size": 20})
     trace.enable()
     its, _ = _steps(problem, 1)
     out = _timing_lines(capfd, problem)
@@ -254,13 +259,18 @@ def test_print_timings_reads_the_spans(name, capfd):
     want = (r"\n===== Timing Solver: \d+\.\d{3}s\n\n===== Timing preconditioner: "
             r"(\d+\.\d{3})s \((\d+) applications; host seconds issuing each stage inside "
             r"the solve\)\n" + stages + r"\n===== Timing AMG setup: \d+\.\d{3}s \((\d+) "
-            r"hierarchies\)\n\n===== Host syncs: (\d+) in 1 steps\n")
+            r"hierarchies\); Galerkin (\d+\.\d{3})s in (\d+) products, (\d+) in row blocks "
+            r"on (\d+) threads\n\n===== Host syncs: (\d+) in 1 steps\n")
     got = re.fullmatch(want, out)
     assert got, out
-    pc_s, n_app, n_amg, syncs = got.groups()
+    pc_s, n_app, n_amg, gal_s, n_gal, n_blocked, threads, syncs = got.groups()
     assert int(n_app) == its[0] == tot[trace.PC_APPLY].count
     assert pc_s == f"{tot[trace.PC_APPLY].seconds:.3f}"
     assert int(n_amg) == tot[trace.AMG_SETUP].count and int(syncs) == trace.host_syncs()
+    assert gal_s == f"{tot[trace.GALERKIN].seconds:.3f}"
+    assert int(n_gal) == tot[trace.GALERKIN].count > 0
+    assert int(threads) == amg.host_threads()
+    assert int(n_blocked) == (int(n_gal) if int(threads) > 1 else 0)
     if name == "3way":
         press = tot["pc.p"].seconds + tot["pc.diff"].seconds
         assert f"\tPressure solver: {press:.3f}s" in out
