@@ -856,7 +856,10 @@ class Poromechanics(AbstractPhysics):
         products and how many of them ran in row blocks on how many
         threads, and the host syncs of the steps.  The PC's seconds are
         the host's, spent issuing each stage; on the card the device runs
-        behind them.  With nothing recorded, the Solver line alone."""
+        behind them.  Then, from the always-on counters, the banded
+        products' stored diagonal values, the share of them that are
+        structural zeros and K1's share on its scalar path.  With nothing
+        recorded and no banded product, the Solver line alone."""
         log("\n===== Timing Solver: {:.3f}s".format(self.t_solve_total))
         tot = trace.totals()
         app = tot.get(trace.PC_APPLY)
@@ -879,3 +882,8 @@ class Poromechanics(AbstractPhysics):
         step = tot.get(trace.STEP)
         if step is not None:
             log("\n===== Host syncs: {} in {} steps".format(trace.host_syncs(), step.count))
+        band = trace.banded_totals()
+        if band.stored:
+            log("\n===== Banded products: {} diagonal values stored, {:.2f}% structural zeros; "
+                "K1 {:.2f}% of its values on the scalar path".format(
+                    band.stored, band.fill, band.k1_scalar_share or 0.0))

@@ -91,42 +91,46 @@ def transpose_layout(data: torch.Tensor, offsets, ne: int) -> torch.Tensor:
 MESH_PRODUCTS = collections.Counter()
 
 
-def halo_matvec_local(data, shift, shift_dev, window):
+def halo_matvec_local(data, shift, shift_dev, window, nnz=None):
     """One rank's halo matvec: K1 on the window of its slab's input, the
-    offsets shifted by the window's left halo."""
-    return dia_kernel.mv(data, shift, shift_dev, window, data.shape[1])
+    offsets shifted by the window's left halo.  ``nnz`` (here and below):
+    the structural nonzeros of the data, for ``dia_kernel``'s counters."""
+    return dia_kernel.mv(data, shift, shift_dev, window, data.shape[1], nnz=nnz)
 
 
-def halo_interior_local(data, offsets, offsets_dev, x_loc):
+def halo_interior_local(data, offsets, offsets_dev, x_loc, nnz=None):
     """The split halo matvec's first launch, made while the exchange flies:
     K1 on the slab alone, offsets unshifted.  K1 reads zeros outside the
     slab, so the rows [hl, nloc - hr) are right and the hl top and hr
     bottom rows wait for ``halo_fixup_local``."""
-    return dia_kernel.mv(data, offsets, offsets_dev, x_loc, data.shape[1])
+    return dia_kernel.mv(data, offsets, offsets_dev, x_loc, data.shape[1], nnz=nnz)
 
 
-def halo_fixup_local(y, top, bottom, shift, shift_dev, x_loc, from_left, from_right):
+def halo_fixup_local(y, top, bottom, shift, shift_dev, x_loc, from_left, from_right,
+                     nnz=(None, None)):
     """Overwrite the ``hl`` top and ``hr`` bottom rows of ``y`` (the interior
     launch's output) from the received halos: K1 on ``top`` (data's first
     hl columns) over [from_left | x_loc[:hl + hr]] and on ``bottom`` (its
     last hr columns) over [x_loc[-(hl + hr):] | from_right], the offsets
     shifted by hl.  Each takes the diagonal groups of the slab's launch,
-    so every row is summed in the order of the unsplit product."""
+    so every row is summed in the order of the unsplit product.  ``nnz``:
+    those of ``top`` and ``bottom``."""
     nloc = y.shape[0]
     hl, hr = from_left.shape[0], from_right.shape[0]
     if hl:
         xt = torch.cat([from_left, x_loc[: hl + hr]])
-        y[:hl] = dia_kernel.mv(top, shift, shift_dev, xt, hl, groups_of=nloc)
+        y[:hl] = dia_kernel.mv(top, shift, shift_dev, xt, hl, groups_of=nloc, nnz=nnz[0])
     if hr:
         xb = torch.cat([x_loc[nloc - hl - hr :], from_right])
-        y[nloc - hr :] = dia_kernel.mv(bottom, shift, shift_dev, xb, hr, groups_of=nloc)
+        y[nloc - hr :] = dia_kernel.mv(bottom, shift, shift_dev, xb, hr, groups_of=nloc,
+                                       nnz=nnz[1])
     return y
 
 
-def halo_rmatvec_local(data, shift, shift_dev, x, hl, hr):
+def halo_rmatvec_local(data, shift, shift_dev, x, hl, hr, nnz=None):
     """One rank's halo transpose before the fold: K2 over the window of
     ``hl + nloc + hr`` columns, the offsets shifted by ``hl``."""
-    return dia_kernel.rmv(data, shift, shift_dev, x, hl + data.shape[1] + hr)
+    return dia_kernel.rmv(data, shift, shift_dev, x, hl + data.shape[1] + hr, nnz=nnz)
 
 
 def halo_fold(acc, hl, hr, from_left, from_right):
@@ -157,13 +161,18 @@ class DIA(nn.Module):
     col_emb: optional (ncols,) int64 buffer embedding columns into row space
     dataT: optional (nd, ne) transposed layout, dataT[d, i + offsets[d]] = data[d, i]
     On a mesh data holds the rank's slab (nd, nloc) and nrows stays global.
+    nnz: the structural nonzeros among data's values (those of dataT are
+    the same), the CSR's count or else data's nonzeros when it is built;
+    every product reports them to ``dia_kernel``'s counters.
     """
 
+    nnz = None  # a DIA pickled before the count was kept reports none
     dist = None  # None, ("halo", mesh) or ("gather", mesh)
     col_slab = True  # on a mesh: the column space is a field in slabs
     split = False  # on a mesh: the halo matvec can run its interior under the exchange
 
-    def __init__(self, data, offsets, nrows, ncols, col_emb=None, ne=None, dataT=None):
+    def __init__(self, data, offsets, nrows, ncols, col_emb=None, ne=None, dataT=None,
+                 nnz=None):
         super().__init__()
         self.offsets = tuple(int(o) for o in offsets)
         self.nrows = int(nrows)
@@ -176,6 +185,7 @@ class DIA(nn.Module):
         self.ne = int(ne)
         self.register_buffer("data", data)
         self.register_buffer("dataT", dataT)
+        self.nnz = int(torch.count_nonzero(data)) if nnz is None else int(nnz)
         self.register_buffer("col_emb", col_emb)
         off = torch.tensor(self.offsets, dtype=torch.int32)
         self.register_buffer("offsets_dev", off)
@@ -207,6 +217,8 @@ class DIA(nn.Module):
             hl, hr = self.halo
             self.register_buffer("data_top", self.data[:, :hl].contiguous())
             self.register_buffer("data_bottom", self.data[:, nloc - hr :].contiguous())
+            self.nnz_split = (int(torch.count_nonzero(self.data_top)),
+                              int(torch.count_nonzero(self.data_bottom)))
         if kind == "halo" and self.col_emb is not None:
             hl, hr = self.halo
             src, dst = _window_scatter(self.col_emb, mesh.rank * nloc - hl, hl + nloc + hr)
@@ -251,7 +263,7 @@ class DIA(nn.Module):
         if store_transpose and dtype == torch.float32:
             ne = m if col_emb is None else max(n, int(col_emb.max()) + 1)
             dataT = transpose_layout(data, offs, ne)
-        return cls(data, tuple(offs), n, m, col_emb, dataT=dataT)
+        return cls(data, tuple(offs), n, m, col_emb, dataT=dataT, nnz=coo.nnz)
 
     # -- products -------------------------------------------------------
 
@@ -263,7 +275,8 @@ class DIA(nn.Module):
             xe[self.col_emb] = x
         else:
             xe = x
-        return dia_kernel.mv(self.data, self.offsets, self.offsets_dev, xe, self.nrows)
+        return dia_kernel.mv(self.data, self.offsets, self.offsets_dev, xe, self.nrows,
+                             nnz=self.nnz)
 
     forward = matvec
 
@@ -279,9 +292,11 @@ class DIA(nn.Module):
                 self.neg_offsets_dev,
                 x,
                 self.ne,
+                nnz=self.nnz,
             )
         else:
-            y = dia_kernel.rmv(self.data, self.offsets, self.offsets_dev, x, self.ne)
+            y = dia_kernel.rmv(self.data, self.offsets, self.offsets_dev, x, self.ne,
+                               nnz=self.nnz)
         if self.col_emb is not None:
             return y[self.col_emb]
         return y[: self.ncols]
@@ -295,7 +310,7 @@ class DIA(nn.Module):
         nloc = self.data.shape[1]
         if self._local():
             MESH_PRODUCTS["local", "matvec", False] += 1
-            return halo_matvec_local(self.data, self.shift, self.shift_dev, x)
+            return halo_matvec_local(self.data, self.shift, self.shift_dev, x, self.nnz)
         MESH_PRODUCTS[kind, "matvec", self.col_emb is not None] += 1
         if kind == "halo" and self.col_emb is None:
             hl, hr = self.halo
@@ -303,33 +318,33 @@ class DIA(nn.Module):
             if not (self.split and mesh.halo_split):
                 from_left, from_right = pending.wait()
                 return halo_matvec_local(self.data, self.shift, self.shift_dev,
-                                         torch.cat([from_left, x, from_right]))
-            y = halo_interior_local(self.data, self.offsets, self.offsets_dev, x)
+                                         torch.cat([from_left, x, from_right]), self.nnz)
+            y = halo_interior_local(self.data, self.offsets, self.offsets_dev, x, self.nnz)
             from_left, from_right = pending.wait()
             return halo_fixup_local(y, self.data_top, self.data_bottom, self.shift,
-                                    self.shift_dev, x, from_left, from_right)
+                                    self.shift_dev, x, from_left, from_right, self.nnz_split)
         xs = mesh.all_gather(x) if self.col_slab else x
         if kind == "halo":
             hl, hr = self.halo
             window = xs.new_zeros(hl + nloc + hr)
             window[self.win_dst] = xs[self.win_src]
-            return halo_matvec_local(self.data, self.shift, self.shift_dev, window)
+            return halo_matvec_local(self.data, self.shift, self.shift_dev, window, self.nnz)
         if self.col_emb is not None:
             xe = xs.new_zeros(self.ne)
             xe[self.col_emb] = xs
         else:
             xe = xs
-        return dia_kernel.mv(self.data, self.shift, self.shift_dev, xe, nloc)
+        return dia_kernel.mv(self.data, self.shift, self.shift_dev, xe, nloc, nnz=self.nnz)
 
     def _mesh_rmatvec(self, x):
         kind, mesh = self.dist
         if self._local():
             MESH_PRODUCTS["local", "rmatvec", False] += 1
-            return halo_rmatvec_local(self.data, self.shift, self.shift_dev, x, 0, 0)
+            return halo_rmatvec_local(self.data, self.shift, self.shift_dev, x, 0, 0, self.nnz)
         MESH_PRODUCTS[kind, "rmatvec", self.col_emb is not None] += 1
         if kind == "halo":
             hl, hr = self.halo
-            acc = halo_rmatvec_local(self.data, self.shift, self.shift_dev, x, hl, hr)
+            acc = halo_rmatvec_local(self.data, self.shift, self.shift_dev, x, hl, hr, self.nnz)
             if self.col_emb is None:
                 nloc = self.data.shape[1]
                 from_left, from_right = mesh.exchange(acc[:hl], acc[hl + nloc :])
@@ -337,7 +352,7 @@ class DIA(nn.Module):
             y = acc.new_zeros(self.ncols)
             y[self.win_src] = acc[self.win_dst]
         else:
-            acc = dia_kernel.rmv(self.data, self.shift, self.shift_dev, x, self.ne)
+            acc = dia_kernel.rmv(self.data, self.shift, self.shift_dev, x, self.ne, nnz=self.nnz)
             y = acc[self.col_emb] if self.col_emb is not None else acc[: self.ncols]
         y = mesh.allreduce_sum(y)
         return mesh.slab(y) if self.col_slab else y

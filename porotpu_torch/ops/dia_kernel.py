@@ -69,6 +69,18 @@ LAUNCHES = collections.Counter()
 # The launches among them that took the masked scalar path (a length that
 # is not a whole number of 16-byte chunks, or an unaligned input).
 SCALAR_LAUNCHES = collections.Counter()
+# The products of ``mv`` (K1) and ``rmv`` (K2), on every device, by the
+# diagonal values they stream: kernel -> values stored (nd x nrows a
+# product) and how many of them are structural nonzeros (the operator's
+# ``nnz``, counted when it was built).  A product whose caller gives no
+# ``nnz`` is left out of both.
+STORED = {"dia_mv": 0, "dia_rmv": 0}
+NONZERO = {"dia_mv": 0, "dia_rmv": 0}
+# K1's stored values by the path of its launch: "vector" (16-byte chunks)
+# or "scalar" (``SCALAR_LAUNCHES``'s masked path).  A product on a CPU
+# tensor, which the plain version computes, counts the path a launch of
+# its operands would take.
+K1_PATH = {"vector": 0, "scalar": 0}
 
 _lib = None
 
@@ -78,6 +90,9 @@ def reset_counts():
         COUNTS[k] = 0
     LAUNCHES.clear()
     SCALAR_LAUNCHES.clear()
+    for counter in (STORED, NONZERO, K1_PATH):
+        for k in counter:
+            counter[k] = 0
 
 
 def _nvcc() -> str:
@@ -289,17 +304,24 @@ def launch_plan_like(nd: int, n_out: int, n_in: int, dtype: torch.dtype,
                                smem_bytes=like.smem_bytes)
 
 
+def _vector(plan, x) -> bool:
+    """Whether a launch by ``plan`` on the input ``x`` takes 16-byte chunks:
+    the plan allows them and x is 16-byte aligned (data must be)."""
+    return plan.vec and x.data_ptr() % 16 == 0
+
+
 def _launch_planned(name, fn, data, offsets, x, ne, y, plan):
-    """Launch K1 or K2 by ``plan``: 16-byte chunks when the plan allows
-    them and x is 16-byte aligned (data must be)."""
+    """Launch K1 or K2 by ``plan``, in 16-byte chunks where ``_vector``."""
     if data.data_ptr() % 16:
         raise ValueError(f"{name}: data must be 16-byte aligned")
     nd, nrows = data.shape
-    vec = plan.vec and x.data_ptr() % 16 == 0
+    vec = _vector(plan, x)
     _launch(name, fn, data, offsets, nd, nrows, x, ne, y,
             int(vec), plan.warps, plan.cluster, plan.stages, plan.tile)
     if not vec:
         SCALAR_LAUNCHES[name, str(data.dtype).removeprefix("torch."), nd, nrows] += 1
+    if name == "dia_mv":
+        K1_PATH["vector" if vec else "scalar"] += nd * nrows
     return y
 
 
@@ -359,13 +381,21 @@ def dia_mv_ref(data: torch.Tensor, offsets, xe: torch.Tensor, nrows: int) -> tor
     return (F.pad(prod, (0, pad)) if pad else prod).sum(0)[:nrows]
 
 
-def mv(data, offsets, offsets_dev, xe, nrows, groups_of=None):
+def mv(data, offsets, offsets_dev, xe, nrows, groups_of=None, nnz=None):
     """Banded product dispatched by device: K1 for a CUDA tensor, its plain
     version for a CPU tensor.  ``groups_of``: K1's diagonal groups as a
-    launch over that many rows (``dia_mv``)."""
+    launch over that many rows (``dia_mv``); ``nnz``: the structural
+    nonzeros of ``data``, for ``STORED``/``NONZERO``."""
+    nd = data.shape[0]
+    if nnz is not None:
+        STORED["dia_mv"] += nd * nrows
+        NONZERO["dia_mv"] += nnz
     if xe.is_cuda:
-        return dia_mv(data, offsets_dev, xe, groups_of)
+        return dia_mv(data, offsets_dev, xe, groups_of)  # K1_PATH counted at the launch
     COUNTS["plain"] += 1
+    if nd and nrows:
+        vec = _vector(launch_plan(nd, nrows, xe.shape[0], data.dtype), xe)
+        K1_PATH["vector" if vec else "scalar"] += nd * nrows
     return dia_mv_ref(data, offsets, xe, nrows)
 
 
@@ -410,9 +440,12 @@ def dia_rmv_ref(data: torch.Tensor, offsets, x: torch.Tensor, ne: int) -> torch.
     return torch.gather(prod, 1, idx).sum(0)
 
 
-def rmv(data, offsets, offsets_dev, x, ne):
+def rmv(data, offsets, offsets_dev, x, ne, nnz=None):
     """Transpose product dispatched by device: K2 for a CUDA tensor, its
-    plain version for a CPU tensor."""
+    plain version for a CPU tensor.  ``nnz`` as for ``mv``."""
+    if nnz is not None and ne:
+        STORED["dia_rmv"] += data.numel()
+        NONZERO["dia_rmv"] += nnz
     if x.is_cuda:
         return dia_rmv(data, offsets_dev, x, ne)
     COUNTS["plain"] += 1

@@ -42,6 +42,12 @@ The spans, each at one place in the program:
 The named counters: ``setup.galerkin.row_blocked``, the products that
 ran in row blocks on the host's thread pool.
 
+``banded_totals()`` sums the banded products' counters, which
+``ops.dia_kernel`` keeps always on, tracing or not, until its
+``reset_counts()``: the diagonal values the K1 and K2 products streamed,
+how many of them are structural nonzeros, and K1's values by the path of
+its launch (vector or scalar).
+
 ``Poromechanics.print_timings`` reads all of them and the counters.  No
 span goes below a block PC stage: a product or a launch has none.
 """
@@ -54,6 +60,8 @@ import functools
 import time
 
 import torch
+
+from ..ops import dia_kernel
 
 STEP = "step"
 PC_APPLY = "pc.apply"
@@ -231,6 +239,33 @@ def totals() -> dict[str, Total]:
             t.seconds += r.seconds
             t.host_syncs += r.host_syncs
     return out
+
+
+@dataclasses.dataclass
+class Banded:
+    """The banded products' counters (``ops.dia_kernel``), summed."""
+
+    stored: int = 0  # diagonal values of the K1 and K2 products that report their nnz
+    nonzero: int = 0  # the structural nonzeros among them
+    k1_vector: int = 0  # K1's stored values launched on the vector path
+    k1_scalar: int = 0  # and on the scalar path
+
+    @property
+    def fill(self) -> float | None:
+        """Percent of the stored values that are structural zeros."""
+        return 100.0 * (self.stored - self.nonzero) / self.stored if self.stored else None
+
+    @property
+    def k1_scalar_share(self) -> float | None:
+        """Percent of K1's stored values on the scalar path."""
+        k1 = self.k1_vector + self.k1_scalar
+        return 100.0 * self.k1_scalar / k1 if k1 else None
+
+
+def banded_totals() -> Banded:
+    """The banded products since ``dia_kernel.reset_counts()``."""
+    return Banded(sum(dia_kernel.STORED.values()), sum(dia_kernel.NONZERO.values()),
+                  dia_kernel.K1_PATH["vector"], dia_kernel.K1_PATH["scalar"])
 
 
 def host_syncs() -> int:

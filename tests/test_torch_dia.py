@@ -271,6 +271,49 @@ def test_cpu_dispatch_counts_plain_sweeps():
         assert dia_kernel.COUNTS == {"dia_mv": 0, "dia_rmv": 0, "dia_mv_padded": 0, "plain": 2}
 
 
+@pytest.mark.parametrize("n, offset, path", [(64, 0, "vector"), (63, 0, "scalar"),
+                                             (64, 1, "scalar")])
+def test_banded_counters_count_stored_nonzero_and_k1_path(n, offset, path):
+    """A hand-built f64 DIA, its zeros known: the band's overhang and every
+    seventh value of the main diagonal.  Two products and a transpose add
+    exactly their stored values and nonzeros; K1's values go to the vector
+    path on an even length and an aligned input, else to the scalar path
+    (an odd length, or an input 8 bytes off 16-byte alignment);
+    ``reset_counts`` zeroes them."""
+    from porotpu_torch.utils import trace
+
+    offsets = (-2, 0, 3)
+    rows = np.arange(n)
+    data = np.zeros((len(offsets), n))
+    for d, o in enumerate(offsets):
+        inside = (rows + o >= 0) & (rows + o < n)
+        data[d, inside] = 1.0 + rows[inside]
+    data[1, ::7] = 0.0
+    nnz = int(np.count_nonzero(data))
+    D = DIA(torch.from_numpy(data), offsets, n, n)
+    assert D.nnz == nnz == DIA.from_csr(sp.csr_matrix(D.to_dense())).nnz
+    x = torch.ones(n + offset, dtype=torch.float64)[offset:]
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    dia_kernel.reset_counts()
+    D.matvec(x)
+    D.matvec(x)
+    D.rmatvec(x)
+    stored = len(offsets) * n
+    assert dia_kernel.STORED == {"dia_mv": 2 * stored, "dia_rmv": stored}
+    assert dia_kernel.NONZERO == {"dia_mv": 2 * nnz, "dia_rmv": nnz}
+    other = "scalar" if path == "vector" else "vector"
+    assert dia_kernel.K1_PATH == {path: 2 * stored, other: 0}
+    band = trace.banded_totals()
+    assert (band.stored, band.nonzero) == (3 * stored, 3 * nnz)
+    assert band.fill == 100.0 * (stored - nnz) / stored
+    assert band.k1_scalar_share == (100.0 if path == "scalar" else 0.0)
+    dia_kernel.reset_counts()
+    assert dia_kernel.STORED == dia_kernel.NONZERO == {"dia_mv": 0, "dia_rmv": 0}
+    assert dia_kernel.K1_PATH == {"vector": 0, "scalar": 0}
+    assert trace.banded_totals() == trace.Banded()
+    assert trace.Banded().fill is None and trace.Banded().k1_scalar_share is None
+
+
 # (nd, rows) of every banded operator the N=13 bench solve launches K1 or K2
 # on (chip_smoke.py's launches by operator; PERF.md), square in the lattice
 N13_OPERATORS = [

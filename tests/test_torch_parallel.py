@@ -145,9 +145,9 @@ def test_halo_matvec_launches_its_interior_before_the_wait(n, W, monkeypatch):
     x = torch.from_numpy(np.random.default_rng(2).normal(size=n))
     events, mv = [], dia_kernel.mv
 
-    def recorded(data, offsets, offsets_dev, xe, nrows, groups_of=None):
+    def recorded(data, offsets, offsets_dev, xe, nrows, groups_of=None, nnz=None):
         events.append(("K1", nrows, groups_of))
-        return mv(data, offsets, offsets_dev, xe, nrows, groups_of)
+        return mv(data, offsets, offsets_dev, xe, nrows, groups_of, nnz)
 
     monkeypatch.setattr(dia_kernel, "mv", recorded)
     nloc = n // W

@@ -18,7 +18,8 @@ on the CPU, through the swelling driver at N=3.
   counted; ``annotate`` puts the spans on the profiler's timeline.
 - ``print_timings`` prints the reference's lines from the spans, the AMG
   line with its ``setup.galerkin`` products and how many ran in row
-  blocks, and the Solver line alone when nothing was recorded.
+  blocks, and with no span recorded the Solver line alone; then, tracing
+  or not, the banded products' line from ``dia_kernel``'s counters.
 """
 
 import os
@@ -237,6 +238,17 @@ def test_spans_records_and_annotations():
         assert name in names
 
 
+BANDED = (r"\n===== Banded products: (\d+) diagonal values stored, (\d+\.\d{2})% structural "
+          r"zeros; K1 (\d+\.\d{2})% of its values on the scalar path\n")
+
+
+def _check_banded(groups):
+    """The banded line's numbers are ``trace.banded_totals()``'s."""
+    band = trace.banded_totals()
+    assert band.stored > 0
+    assert tuple(groups) == (str(band.stored), f"{band.fill:.2f}", f"{band.k1_scalar_share:.2f}")
+
+
 def _timing_lines(capfd, problem):
     capfd.readouterr()
     problem.print_timings()
@@ -260,10 +272,11 @@ def test_print_timings_reads_the_spans(name, capfd, monkeypatch):
             r"(\d+\.\d{3})s \((\d+) applications; host seconds issuing each stage inside "
             r"the solve\)\n" + stages + r"\n===== Timing AMG setup: \d+\.\d{3}s \((\d+) "
             r"hierarchies\); Galerkin (\d+\.\d{3})s in (\d+) products, (\d+) in row blocks "
-            r"on (\d+) threads\n\n===== Host syncs: (\d+) in 1 steps\n")
+            r"on (\d+) threads\n\n===== Host syncs: (\d+) in 1 steps\n" + BANDED)
     got = re.fullmatch(want, out)
     assert got, out
-    pc_s, n_app, n_amg, gal_s, n_gal, n_blocked, threads, syncs = got.groups()
+    pc_s, n_app, n_amg, gal_s, n_gal, n_blocked, threads, syncs, *band = got.groups()
+    _check_banded(band)
     assert int(n_app) == its[0] == tot[trace.PC_APPLY].count
     assert pc_s == f"{tot[trace.PC_APPLY].seconds:.3f}"
     assert int(n_amg) == tot[trace.AMG_SETUP].count and int(syncs) == trace.host_syncs()
@@ -280,4 +293,6 @@ def test_print_timings_without_spans(capfd):
     problem = _problem(RUNS["2way"])
     _steps(problem, 1)
     out = _timing_lines(capfd, problem)
-    assert re.fullmatch(r"\n===== Timing Solver: \d+\.\d{3}s\n", out), out
+    got = re.fullmatch(r"\n===== Timing Solver: \d+\.\d{3}s\n" + BANDED, out)
+    assert got, out
+    _check_banded(got.groups())
