@@ -10,6 +10,19 @@
    card in f32 and f64 (utils/roofline.py: a chained triad over 256 MB
    arrays), measured once here; every bound share below is printed
    against the data sheet's 3.35 TB/s and against this measured peak.
+1b. The ELL kernel (csrc/ell_mv.cu) at the benchmark cells' ELL shapes
+   (``dia_microbench.ELL_SHAPES``), f64 and f32, through ``ELL.matvec``:
+   cold and warm beside its bound (values, int32 columns, input and
+   output once), the plain version (``ell_mv_ref``) and torch's
+   gather-mul-sum on int64 columns (the port's product before the kernel);
+   two launches bitwise equal, the plain version's answer to 1e-12 (f64)
+   or 1e-5 (f32) of max|y|, and no product on the plain version.  Each
+   ELL time is printed beside the stored layout's bound (pads included,
+   as ``ell_roofline`` counts them) and the nonzeros' alone.  The driver
+   runs below check that every ELL product of a solve launched the kernel
+   and none took the plain version; the kernel record's launches are
+   those of footing_inexact's solve (phase 8), its times phase 1b's 3D
+   level-0 P in f64.
 2. Main path, K1: swelling-3d N=13 with the bench.py overrides (120,842
    dofs, pad multiple 128, f32, loads-only), one time step through
    ``problem.solve()``: FGMRES + the 2-way block preconditioner with AMG.
@@ -439,11 +452,72 @@ def banded_transposes(ops):
     return [m for m in cands if type(m).__name__ == "DIA"]
 
 
-def time_heaviest_ell(ops, ell, dev, torch, mb, peaks):
-    """Cold and warm time of the ELL product of each kind (the gather on
-    A's layout, the transpose's gather on the stored transposed layout)
-    that took the most of a solve's ELL work (products x rows x width),
-    beside the bytes it must move."""
+def time_ell(run, data, cols, n_in, torch, mb, peaks):
+    """Cold and warm time of ``run``, one ELL product that reads the
+    (n, width) values ``data`` and columns ``cols`` and an input of n_in,
+    beside two bounds at the data sheet's bandwidth: the stored layout's
+    (every slot's value and column, pads included, as ``ell_roofline``
+    counts them) and the nonzeros' alone (the bytes the product needs);
+    both read the input and write the output once.  Returns the record
+    and a line that prints it."""
+    n, width = data.shape
+    item, vec = data.element_size(), (n_in + n) * data.element_size()
+    slots, nnz = n * width, int(torch.count_nonzero(data))
+    nbytes = slots * (item + cols.element_size()) + vec
+    rec = dict(ms=mb.cold_ms(run, 30), warm_ms=mb.cuda_ms(run, 50), nbytes=nbytes)
+    rec["bound_ms"], rec["bound_by"] = mb.bound(nbytes, 2 * slots, data.dtype)
+    rec["nnz_bound_ms"], _ = mb.bound(nnz * (item + cols.element_size()) + vec, 2 * nnz,
+                                      data.dtype)
+    share = mb.shares(rec["ms"], nbytes, 2 * slots, data.dtype, peaks[data.dtype])
+    line = (f"cold {rec['ms']:.4f} ms ({share}; stored layout {nbytes / 1e6:.1f} MB), warm "
+            f"{rec['warm_ms']:.4f} ms; nonzeros {100 * nnz / max(slots, 1):.1f}% of the slots, "
+            f"their bound {rec['nnz_bound_ms']:.4f} ms "
+            f"({100 * rec['nnz_bound_ms'] / rec['ms']:.1f}%)")
+    return rec, line
+
+
+def ell_phase(dev, torch, dia_kernel, mb, peaks):
+    """Phase 1b: the ELL kernel at the benchmark cells' ELL shapes, each
+    held against its plain version; returns the times of the heaviest (the
+    3D cell's level-0 P, f64)."""
+    import numpy as np
+
+    from porotpu_torch.ops.sparse import ELL, ell_mv_ref
+
+    dia_kernel.reset_counts()
+    heaviest = None
+    for n, width, n_in in mb.ELL_SHAPES:
+        data, cols = mb.random_ell(n, width, n_in, seed=n + width)
+        for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+            E = ELL(torch.as_tensor(data, dtype=dtype), torch.from_numpy(cols), n_in).to(dev)
+            x = torch.as_tensor(np.random.default_rng(n).normal(size=n_in), dtype=dtype,
+                                device=dev)
+            first, second = E.matvec(x), E.matvec(x)
+            ref = ell_mv_ref(E.data, E.cols, x)
+            torch.cuda.synchronize()
+            rel = ((first - ref).abs().max() / ref.abs().max()).item()
+            label = f"ELL {n} x {width} over {n_in}, {str(dtype).removeprefix('torch.')}"
+            check(torch.equal(first, second), f"{label}: two launches differ")
+            check(rel <= tol, f"{label} disagrees with its plain version ({rel:.2e})")
+            cols64 = E.cols.long()
+            rec, line = time_ell(lambda: E.matvec(x), E.data, E.cols, n_in, torch, mb, peaks)
+            rec.update(plain_ms=mb.cold_ms(lambda: ell_mv_ref(E.data, E.cols, x), 10),
+                       library_ms=mb.cold_ms(lambda: (E.data * x[cols64]).sum(1), 10),
+                       err=(first - ref).abs().max().item())
+            print(f"{label}: err {rel:.2e}; {line}; plain {rec['plain_ms']:.4f} ms; torch "
+                  f"gather-mul-sum (int64 columns) {rec['library_ms']:.4f} ms", flush=True)
+            if dtype == torch.float64 and (heaviest is None or rec["nbytes"] > heaviest["nbytes"]):
+                heaviest = rec
+    counts = dict(dia_kernel.ELL_COUNTS)
+    check(counts["plain"] == 0 and counts["ell_mv"] > 0,
+          f"ELL phase: {counts['ell_mv']} launches, {counts['plain']} plain products")
+    return heaviest
+
+
+def time_heaviest_ell(ops, ell, torch, mb, peaks):
+    """Cold and warm time of the ELL product of each kind (A's layout, the
+    stored transposed layout) that took the most of a solve's ELL work
+    (products x rows x width), beside its bounds (``time_ell``)."""
     ells = {(str(m.data.dtype).removeprefix("torch."), *m.data.shape): m for m in ops["ELL"]}
     for product in ("matvec", "rmatvec"):
         keys = [k for k in ell if k[0] == product and k[1:] in ells]
@@ -455,17 +529,12 @@ def time_heaviest_ell(ops, ell, dev, torch, mb, peaks):
         data, cols = (op.data, op.cols) if product == "matvec" else (op.dataT, op.colsT)
         n, width = data.shape
         n_in = op.ncols if product == "matvec" else op.data.shape[0]
-        x = torch.randn(n_in, dtype=op.data.dtype, device=dev)
-        nbytes = (n * width * (data.element_size() + cols.element_size())
-                  + (n_in + n) * data.element_size())
-        b_ms, _ = mb.bound(nbytes, 2 * n * width, op.data.dtype)
+        x = torch.randn(n_in, dtype=data.dtype, device=data.device)
         run = getattr(op, product)
-        ms, warm = mb.cold_ms(lambda: run(x), 30), mb.cuda_ms(lambda: run(x), 50)
-        share = mb.shares(ms, nbytes, 2 * n * width, op.data.dtype, peaks[op.data.dtype])
+        rec, line = time_ell(lambda: run(x), data, cols, n_in, torch, mb, peaks)
         print(f"heaviest ELL {product} ({n} rows x {width}, {ell[key]} products in the solve): "
-              f"cold {ms:.4f} ms ({share}), "
-              f"warm {warm:.4f} ms; x (cold - bound) over the solve "
-              f"{ell[key] * (ms - b_ms):.1f} ms", flush=True)
+              f"{line}; x (cold - bound) over the solve "
+              f"{ell[key] * (rec['ms'] - rec['bound_ms']):.1f} ms", flush=True)
 
 
 @contextlib.contextmanager
@@ -523,6 +592,7 @@ def driver_run(label, drv, argv, dofs, oracle, k2, dev, torch, dia_kernel, ell_p
     with count_syncs(torch) as syncs:
         iterations = problem.solve()
     counts = dict(dia_kernel.COUNTS)
+    ell_counts = dict(dia_kernel.ELL_COUNTS)
     launches = dict(dia_kernel.LAUNCHES)
     scalar = dict(dia_kernel.SCALAR_LAUNCHES)
     ell = dict(ell_products)
@@ -572,19 +642,29 @@ def driver_run(label, drv, argv, dofs, oracle, k2, dev, torch, dia_kernel, ell_p
     check(np.isfinite(problem.sol.cpu().numpy()).all(), f"{label}: non-finite solution")
     check(any(k[:2] == ("dia_mv", "float64") for k in launches), f"{label}: K1 never ran in f64")
     check(counts["plain"] == 0, f"{label}: {counts['plain']} banded products took a plain version")
+    check_ell(label, ell_counts, ell)
     ops = operators((problem.A_dev, problem.pc, problem.H_dev))
     transposes = banded_transposes(ops)
     print(f"banded operators applied transposed (K2's): {len(transposes)}; "
           f"DIA {len(ops['DIA'])}, ELL {len(ops['ELL'])}, Transposed {len(ops['Transposed'])}")
     check_k2(label, bool(transposes) if k2 is None else k2, transposes, counts)
-    time_heaviest_ell(ops, ell, dev, torch, mb, peaks)
+    time_heaviest_ell(ops, ell, torch, mb, peaks)
 
     held = held_sets(launches, scalar, ops, k12)
     out = dict(iterations=iterations, launches=launches, scalar=scalar, counts=counts, held=held,
                solve_s=problem.t_solve_total, setup_s=problem.t_setup,
-               peak_mib=(peak - before) / 2**20, fp_iters=fp_iters)
+               peak_mib=(peak - before) / 2**20, fp_iters=fp_iters, ell_counts=ell_counts)
     out["problem"] = problem
     return out
+
+
+def check_ell(label, ell_counts, ell):
+    """Every ELL product of a run launched the ELL kernel: none took the
+    plain version."""
+    launched = ell_counts["ell_mv"] + ell_counts["ell_rmv"]
+    check(ell_counts["plain"] == 0 and launched == sum(ell.values()),
+          f"{label}: {sum(ell.values())} ELL products, {launched} kernel launches, "
+          f"{ell_counts['plain']} plain")
 
 
 def check_k2(label, k2, transposes, counts):
@@ -768,6 +848,7 @@ def subsystem_run(label, drv, argv, dofs, oracle, resid, k2, dev, torch, dia_ker
     with count_syncs(torch) as syncs:
         its = run.solve()
     counts = dict(dia_kernel.COUNTS)
+    ell_counts = dict(dia_kernel.ELL_COUNTS)
     launches = dict(dia_kernel.LAUNCHES)
     scalar = dict(dia_kernel.SCALAR_LAUNCHES)
     ell = dict(ell_products)
@@ -794,6 +875,7 @@ def subsystem_run(label, drv, argv, dofs, oracle, resid, k2, dev, torch, dia_ker
     check(np.isfinite(res.x.cpu().numpy()).all(), f"{label}: non-finite solution")
     check(any(k[:2] == ("dia_mv", "float64") for k in launches), f"{label}: K1 never ran in f64")
     check(counts["plain"] == 0, f"{label}: {counts['plain']} banded products took a plain version")
+    check_ell(label, ell_counts, ell)
     ops = operators((run.E, run.M))
     transposes = banded_transposes(ops)
     print(f"banded operators applied transposed (K2's): {len(transposes)}; "
@@ -1264,6 +1346,9 @@ def main():
           f"f32 {peaks[torch.float32]:.1f} GB/s, f64 {peaks[torch.float64]:.1f} GB/s; "
           f"data sheet {mb.HBM_BYTES_PER_S / 1e9:.0f} GB/s", flush=True)
 
+    # -- 1b. the ELL kernel at the benchmark cells' shapes --------------------
+    ell_rec = ell_phase(dev, torch, dia_kernel, mb, peaks)
+
     # -- 2. main path, K1: swelling-3d N=13 f32, one step ------------------
     f32 = bench.build_problem("float32", device=dev, cache_dir=None)
     dofs, padded = f32.W.num_dofs, f32.padded_sizes
@@ -1487,6 +1572,9 @@ def main():
     for label, drv, argv, dofs, oracle, k2 in DRIVER_RUNS:
         out = driver_run(label, drivers_by_name[drv], argv, dofs, oracle, k2, dev, torch,
                          dia_kernel, ELL_PRODUCTS, inner_iters, FieldwiseTest, mb, peaks)
+        if label == "footing_inexact":  # the ELL kernel's main path: footing's ELL blocks
+            ell_launches = out["ell_counts"]["ell_mv"] + out["ell_counts"]["ell_rmv"]
+            check(ell_launches > 0, f"{label}: the ELL kernel was never launched")
         pc = out["problem"].pc
         if label == "swelling_exact":
             check(pc.solve_s.kind == "lu" and pc.solve_fp.kind == "lu",
@@ -1595,6 +1683,10 @@ def main():
          "max_abs_err": mbrec["max_abs_err"], "ms": k3["ms"], "plain_ms": mbrec["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
          "library_ms": mbrec["cusparse"]["ms"]},
+        {"name": "ell_mv", "route": "cuda", "source": "porotpu_torch/csrc/ell_mv.cu",
+         "replaces": None, "launches": ell_launches, "max_abs_err": ell_rec["err"],
+         "ms": ell_rec["ms"], "plain_ms": ell_rec["plain_ms"], "bound_ms": ell_rec["bound_ms"],
+         "bound_by": ell_rec["bound_by"], "library_ms": ell_rec["library_ms"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -61,7 +61,7 @@ def to_torch(obj, _memo=None):
         dT, colsT = ell_transpose(np.asarray(obj.data, dtype=np.float64), np.asarray(obj.cols),
                                   obj.ncols)
         data = _tensor(obj.data)
-        out = ELL(data, _tensor(obj.cols, torch.int64), obj.ncols,
+        out = ELL(data, _tensor(obj.cols, torch.int32), obj.ncols,
                   torch.as_tensor(dT, dtype=data.dtype), torch.from_numpy(colsT))
     elif name == "FieldMatrix":
         out = FieldMatrix({k: conv(v) for k, v in obj.blocks.items()}, obj.sizes)

@@ -44,6 +44,7 @@ from torch import nn
 
 from ..fem.bcs import bc_dofs_values, zero_rows
 from ..fem.dofmap import FunctionSpace, MixedSpace, vertex_embedding
+from ..ops import dia_kernel
 from ..ops.dia import device_matrix
 from ..ops.sparse import FieldMatrix
 from ..precond.amg import host_threads, rigid_body_modes
@@ -858,8 +859,10 @@ class Poromechanics(AbstractPhysics):
         the host's, spent issuing each stage; on the card the device runs
         behind them.  Then, from the always-on counters, the banded
         products' stored diagonal values, the share of them that are
-        structural zeros and K1's share on its scalar path.  With nothing
-        recorded and no banded product, the Solver line alone."""
+        structural zeros and K1's share on its scalar path, and the ELL
+        products: the kernel's launches and the plain products.  With
+        nothing recorded and no banded or ELL product, the Solver line
+        alone."""
         log("\n===== Timing Solver: {:.3f}s".format(self.t_solve_total))
         tot = trace.totals()
         app = tot.get(trace.PC_APPLY)
@@ -887,3 +890,7 @@ class Poromechanics(AbstractPhysics):
             log("\n===== Banded products: {} diagonal values stored, {:.2f}% structural zeros; "
                 "K1 {:.2f}% of its values on the scalar path".format(
                     band.stored, band.fill, band.k1_scalar_share or 0.0))
+        ell = dia_kernel.ELL_COUNTS
+        if any(ell.values()):
+            log("\n===== ELL products: {} kernel launches (A x {}, A^T x {}), {} plain".format(
+                ell["ell_mv"] + ell["ell_rmv"], ell["ell_mv"], ell["ell_rmv"], ell["plain"]))

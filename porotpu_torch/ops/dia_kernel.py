@@ -25,7 +25,8 @@ source, all started together, and linked into one library under
 ``build/porotpu_torch_ext/`` at the repository root (rebuilt when any
 source is newer than the library).  It is bound through ctypes: the C entry
 points take raw device pointers and the current stream, so neither ninja
-nor PyTorch's headers are needed.
+nor PyTorch's headers are needed.  The library also holds the ELL kernel
+(``csrc/ell_mv.cu``), which ``ops/sparse.py`` plans and launches.
 """
 
 from __future__ import annotations
@@ -81,6 +82,10 @@ NONZERO = {"dia_mv": 0, "dia_rmv": 0}
 # tensor, which the plain version computes, counts the path a launch of
 # its operands would take.
 K1_PATH = {"vector": 0, "scalar": 0}
+# The ELL products (ops/sparse.py): "ell_mv" and "ell_rmv" count launches
+# of ``csrc/ell_mv.cu`` on A's layout and on the transposed one, "plain"
+# the products taken by the plain version (``sparse.ell_mv_ref``).
+ELL_COUNTS = {"ell_mv": 0, "ell_rmv": 0, "plain": 0}
 
 _lib = None
 
@@ -90,7 +95,7 @@ def reset_counts():
         COUNTS[k] = 0
     LAUNCHES.clear()
     SCALAR_LAUNCHES.clear()
-    for counter in (STORED, NONZERO, K1_PATH):
+    for counter in (STORED, NONZERO, K1_PATH, ELL_COUNTS):
         for k in counter:
             counter[k] = 0
 
@@ -175,6 +180,11 @@ def _load():
         fn.restype = ctypes.c_int
     lib.porotpu_dia_mv_padded_f32.argtypes = argtypes
     lib.porotpu_dia_mv_padded_f32.restype = ctypes.c_int
+    # ELL: data, cols (int32), n, width, x, n_in, y, stream
+    for fn in (lib.porotpu_ell_mv_f32, lib.porotpu_ell_mv_f64):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.porotpu_cuda_error_string.argtypes = [ctypes.c_int]
     lib.porotpu_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

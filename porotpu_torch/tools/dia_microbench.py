@@ -140,6 +140,30 @@ def cold_ms(fn, reps):
     return sum(s.elapsed_time(e) for s, e in events) / reps
 
 
+# The ELL operators of the benchmark's cells, (rows, width, input length):
+# footing's level-0 P, its level-1 A, a level-1 P^T, the Schur operator's
+# rows, a coupling block; the 3D cell's level-0 P and its stored P^T
+ELL_SHAPES = ((14818, 48, 3688), (7552, 306, 7552), (3688, 306, 14818), (1884, 50, 1884),
+              (14818, 9, 14818), (206763, 90, 16422), (16422, 741, 206763))
+
+
+def random_ell(n, width, n_in, seed=0):
+    """(data f64 (n, width), cols int32 (n, width)): an ELL over n_in
+    columns whose row lengths are drawn from [0, width] (row 0 full, row 1
+    empty), each row's columns sorted in a window of 4 x width around
+    i * n_in / n, as an assembled operator's lie; a pad slot holds zero and
+    its row's first column (``ops/sparse.py:_ell_arrays``)."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, width + 1, size=n)
+    counts[: min(n, 2)] = (width, 0)[: min(n, 2)]
+    span = min(n_in, 4 * width)
+    start = np.clip(np.arange(n) * n_in // n - span // 2, 0, n_in - span)
+    cols = start[:, None] + np.sort(rng.integers(0, span, size=(n, width)), axis=1)
+    pad = np.arange(width)[None, :] >= counts[:, None]
+    data = np.where(pad, 0.0, rng.normal(size=(n, width)))
+    return data, np.where(pad, cols[:, :1], cols).astype(np.int32)
+
+
 def _pattern(n, seed=0):
     """tools/pallas_dia.py:_pattern in numpy (int32 products wrap alike)."""
     i = np.arange(n, dtype=np.int32)

@@ -7,7 +7,8 @@
 DRIVER is a module of ``porotpu_torch.drivers`` (swelling, footing,
 swelling_3d).  Each run is the driver's own: ``setup`` on the command
 line, then ``solve()``, in this process, one after the other.  Printed:
-the iteration counts of each run, its dispatch counts and ELL products,
+the iteration counts of each run, its dispatch counts and ELL products
+(with the ELL kernel's launches and the plain ELL products),
 whether the two solutions are equal bit for bit and their largest
 difference.  It exits 1 when the counts or the solutions differ: on the
 card a sum whose order changes from run to run (an atomic add) shows
@@ -38,6 +39,7 @@ def run(driver: str, argv: list[str]):
     ell = {"matvec": 0, "rmatvec": 0}
     for (product, *_), n in ELL_PRODUCTS.items():
         ell[product] += n
+    ell.update(dia_kernel.ELL_COUNTS)  # the kernel's launches and the plain products
     return its, problem.sol.cpu(), dict(dia_kernel.COUNTS), ell
 
 

@@ -29,7 +29,8 @@ def config_key(**kwargs) -> str:
 # Bump whenever a cached module's layout changes (DIA, ELL, AMG, PC
 # classes).  A cache written under another schema misses and rebuilds.
 # torch-2: ELL holds its transposed layout (dataT, colsT).
-SCHEMA = "torch-2"
+# torch-3: ELL stores int32 column indices.
+SCHEMA = "torch-3"
 
 
 def _tmp_name(path: str) -> str:

@@ -26,7 +26,7 @@ from porotpu_torch.convert import to_torch
 from porotpu_torch.models.benchmarks import BENCH_OVERRIDES, swelling_3d
 from porotpu_torch.ops import dia_kernel
 from porotpu_torch.ops.dia import DIA, Dense, Transposed, device_matrix
-from porotpu_torch.ops.sparse import ELL, FieldMatrix
+from porotpu_torch.ops.sparse import ELL, ELL_PRODUCTS, FieldMatrix
 from porotpu_torch.tools.dia_microbench import banded_csr
 from torch_k1_cases import (  # noqa: F401 (one_blas_thread: a fixture)
     CSR_CASES, EDGE_CASES, K1_CASES, K2_CPU_CASES, banded_random, csr_case, offset_case,
@@ -259,6 +259,58 @@ def test_ell_transpose_gathers_its_transposed_layout():
     want = A.T @ y
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12 * np.abs(want).max())
     assert bare.dataT is None  # the CPU transposes on the fly and keeps nothing
+
+
+def _wide_sparse():
+    """A 300 x 280 matrix with an empty row and column, a row and a column
+    of more than 256 entries."""
+    A = sp.random(300, 280, density=0.03, random_state=9, format="lil")
+    A[7, :] = np.arange(1.0, 281.0)
+    A[:, 3] = np.arange(1.0, 301.0)[:, None]
+    A[5, :] = 0
+    A[:, 9] = 0
+    return A.tocsr()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("product", ["matvec", "rmatvec"])
+def test_ell_stores_int32_columns_and_gathers_as_int64(product, dtype):
+    """``ELL.from_csr`` stores int32 columns in both layouts; the plain
+    product on them equals the int64 gather bit for bit, on rows wider than
+    256 and an empty row, and counts as one plain product."""
+    A = _wide_sparse()
+    E = ELL.from_csr(A, dtype, store_transpose=True)
+    assert E.cols.dtype == E.colsT.dtype == torch.int32
+    data, cols = (E.data, E.cols) if product == "matvec" else (E.dataT, E.colsT)
+    assert data.shape[1] > 256 and (data == 0).all(1).any()
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=A.shape[product == "matvec"]))
+    x = x.to(dtype)
+    dia_kernel.reset_counts()
+    got = getattr(E, product)(x)
+    assert dia_kernel.ELL_COUNTS == {"ell_mv": 0, "ell_rmv": 0, "plain": 1}
+    assert torch.equal(got, (data * x[cols.long()]).sum(1))
+
+
+@pytest.mark.parametrize("move", ["to_float32", "pickle"])
+def test_ell_move_rebuilds_its_product_keys(move):
+    """A move or a copy of an ELL counts its products under its own dtype
+    and shape, keeps int32 columns and computes what the original does."""
+    import pickle
+
+    A = _wide_sparse()
+    E = ELL.from_csr(A, torch.float64, store_transpose=True)
+    F = E.to(torch.float32) if move == "to_float32" else pickle.loads(pickle.dumps(E))
+    dt = "float32" if move == "to_float32" else "float64"
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=A.shape[1])).to(F.data.dtype)
+    y = torch.from_numpy(np.random.default_rng(5).normal(size=A.shape[0])).to(F.data.dtype)
+    ELL_PRODUCTS.clear()
+    got = F.matvec(x), F.rmatvec(y)
+    n, L = F.data.shape
+    assert dict(ELL_PRODUCTS) == {("matvec", dt, n, L): 1, ("rmatvec", dt, n, L): 1}
+    assert F.cols.dtype == F.colsT.dtype == torch.int32
+    want = (E.data.to(F.data.dtype) * x[E.cols.long()]).sum(1), (
+        E.dataT.to(F.data.dtype) * y[E.colsT.long()]).sum(1)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_cpu_dispatch_counts_plain_sweeps():

@@ -7,7 +7,11 @@ N=3 in f64 launch K1, take no plain version and match their CPU runs.
 A row mesh's local halo products (K1 on a rank's window, K2 over it,
 offsets shifted by the halo) match their plain versions, and the split
 halo matvec (interior launch, then the boundary fix-ups) the unsplit one.  ELL's transpose
-(a gather on its transposed layout) is bitwise repeatable on the card.
+(a gather on its transposed layout) is bitwise repeatable on the card.  The ELL
+kernel (``csrc/ell_mv.cu``) matches the plain gather, f32 to 1e-5 and f64 to
+1e-12 of max|y|, launches twice bitwise equal at the benchmark cells' operator
+shapes and at every lane-group edge, takes no plain product, and refuses a
+bad input.
 
 Every test here needs a CUDA card and skips without one.  This file
 imports no jax, so it runs where jax is absent:
@@ -21,6 +25,8 @@ import torch
 
 from porotpu_torch.ops import dia_kernel
 from porotpu_torch.ops.dia import DIA, Transposed
+from porotpu_torch.ops.sparse import ELL, EllLaunch, ell_mv_ref, ell_transpose
+from porotpu_torch.tools.dia_microbench import ELL_SHAPES, random_ell
 from torch_k1_cases import (
     EDGE_CASES, K1_CASES, K2_CASES, csr_case, edge_case, offset_case, rmv_case, small_build,
 )
@@ -299,3 +305,70 @@ def test_ell_transpose_on_the_card(cuda_device):
     bare = ELL.from_csr(A, torch.float64).to(cuda_device)
     with pytest.raises(RuntimeError, match="transposed layout"):
         bare.rmatvec(yd)
+
+
+def _ell_products(E, product, x, tol, counted):
+    """Two launches of ``product`` on the card: counted as kernel launches,
+    no plain product, bitwise equal, and the plain gather's to ``tol`` of
+    max|y|."""
+    before = dict(dia_kernel.ELL_COUNTS)
+    first, second = getattr(E, product)(x), getattr(E, product)(x)
+    torch.cuda.synchronize()
+    assert dia_kernel.ELL_COUNTS == dict(before, **{counted: before[counted] + 2})
+    assert torch.equal(first, second)
+    data, cols = (E.data, E.cols) if product == "matvec" else (E.dataT, E.colsT)
+    ref = ell_mv_ref(data, cols.long(), x)
+    err = ((first - ref).abs().max() / ref.abs().max()).item()
+    assert err <= tol, err
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("shape", ELL_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("product", ["matvec", "rmatvec"])
+def test_ell_kernel_matches_plain_at_the_cells_shapes(product, shape, dtype, tol, cuda_device):
+    """A x on (data, cols) of the shape, and A^T x on a transposed layout of
+    the shape (A's own layout built from it on the host)."""
+    n, width, n_in = shape
+    data, cols = random_ell(n, width, n_in, seed=n + width)
+    if product == "matvec":
+        E = ELL(torch.as_tensor(data, dtype=dtype), torch.from_numpy(cols), n_in)
+    else:
+        dA, cA = ell_transpose(data, cols, n_in)
+        E = ELL(torch.as_tensor(dA, dtype=dtype), torch.from_numpy(cA), n,
+                torch.as_tensor(data, dtype=dtype), torch.from_numpy(cols))
+    E.to(cuda_device)
+    assert E.cols.dtype == torch.int32 and (E.colsT is None or E.colsT.dtype == torch.int32)
+    x = torch.as_tensor(np.random.default_rng(1).normal(size=n_in), dtype=dtype,
+                        device=cuda_device)
+    _ell_products(E, product, x, tol, "ell_mv" if product == "matvec" else "ell_rmv")
+
+
+@pytest.mark.parametrize("width", [1, 2, 3, 7, 8, 9, 15, 16, 17, 31, 32, 33, 63, 64, 65, 127,
+                                   128, 129, 300])
+def test_ell_kernel_edge_widths_match_plain(width, cuda_device):
+    """Every lane group (2 to 32 lanes a row) at and around its edges, on
+    row counts that leave a block, a warp and a group part empty."""
+    for n in (1, 7, 33, 1001):
+        data, cols = random_ell(n, width, 500, seed=width * n)
+        E = ELL(torch.from_numpy(data), torch.from_numpy(cols), 500).to(cuda_device)
+        x = torch.as_tensor(np.random.default_rng(n).normal(size=500), device=cuda_device)
+        _ell_products(E, "matvec", x, 1e-12, "ell_mv")
+
+
+def test_ell_kernel_refuses_bad_operands(cuda_device):
+    data, cols = random_ell(40, 6, 30)
+    E = ELL(torch.from_numpy(data), torch.from_numpy(cols), 30).to(cuda_device)
+    x = torch.ones(30, dtype=torch.float64, device=cuda_device)
+    for bad in (x.float(), x.cpu(), x[:29], torch.ones(60, dtype=torch.float64,
+                                                           device=cuda_device)[::2]):
+        with pytest.raises(ValueError, match="ell_mv: needs a contiguous"):
+            E.matvec(bad)
+    d, c = E.data, E.cols
+    with pytest.raises(TypeError, match="int32"):
+        EllLaunch("ell_mv", d, c.long(), 30)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        EllLaunch("ell_mv", d.half(), c, 30)
+    with pytest.raises(ValueError, match="columns in"):
+        EllLaunch("ell_mv", d, c, 20)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        EllLaunch("ell_mv", d, c.cpu(), 30)

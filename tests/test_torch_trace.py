@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from porotpu_torch.drivers import swelling
+from porotpu_torch.ops import dia_kernel
 from porotpu_torch.precond import amg
 from porotpu_torch.precond.amg import AMG
 from porotpu_torch.utils import trace
@@ -239,14 +240,24 @@ def test_spans_records_and_annotations():
 
 
 BANDED = (r"\n===== Banded products: (\d+) diagonal values stored, (\d+\.\d{2})% structural "
-          r"zeros; K1 (\d+\.\d{2})% of its values on the scalar path\n")
+          r"zeros; K1 (\d+\.\d{2})% of its values on the scalar path\n"
+          r"(?:\n===== ELL products: (\d+) kernel launches \(A x (\d+), A\^T x (\d+)\), "
+          r"(\d+) plain\n)?")
 
 
 def _check_banded(groups):
-    """The banded line's numbers are ``trace.banded_totals()``'s."""
+    """The banded line's numbers are ``trace.banded_totals()``'s; the ELL
+    line, there when this process made ELL products, is
+    ``dia_kernel.ELL_COUNTS``'."""
     band = trace.banded_totals()
     assert band.stored > 0
-    assert tuple(groups) == (str(band.stored), f"{band.fill:.2f}", f"{band.k1_scalar_share:.2f}")
+    assert tuple(groups[:3]) == (str(band.stored), f"{band.fill:.2f}",
+                                 f"{band.k1_scalar_share:.2f}")
+    ell = dia_kernel.ELL_COUNTS
+    want = (None,) * 4 if not any(ell.values()) else tuple(
+        str(v) for v in (ell["ell_mv"] + ell["ell_rmv"], ell["ell_mv"], ell["ell_rmv"],
+                         ell["plain"]))
+    assert tuple(groups[3:]) == want
 
 
 def _timing_lines(capfd, problem):
